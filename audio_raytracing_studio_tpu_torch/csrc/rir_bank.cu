@@ -1,13 +1,17 @@
 // Fused RIR bank for NVIDIA Hopper (sm_90a) — raw early/late IRs + per-tile stats.
 //
-// Replaces the Pallas TPU kernel `_rir_block_kernel` of
-// audio_raytracing_studio_tpu/ops/ir_synth_pallas.py (reached through
-// `fused_rir_bank` → `_hash_bank`).  Reference semantics:
-// raytracer_studio.py:238-308.  The wrapper and the plain PyTorch version
-// (`_rir_block_plain`) live in ops/ir_synth_cuda.py; both feed the same
-// epilogue (`_finalize_bank`, plain torch, as in the JAX package).
+// Two kernels, one per Pallas TPU kernel of
+// audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:
+//   rir_bank_kernel          replaces `_rir_block_kernel` (hash draws, reached
+//                            through `fused_rir_bank` → `_hash_bank`);
+//   rir_bank_injected_kernel replaces `_rir_bank_kernel` (explicit draws,
+//                            reached through `_injected_bank`) — see below.
+// Reference semantics: raytracer_studio.py:238-308.  The wrappers and the
+// plain PyTorch versions (`_rir_block_plain`, `_rir_bank_plain`) live in
+// ops/ir_synth_cuda.py; all feed the same epilogue (`_finalize_bank`, plain
+// torch, as in the JAX package).
 //
-// What it computes, per (bank entry b, tile of kTile samples):
+// What rir_bank_kernel computes, per (bank entry b, tile of kTile samples):
 //   early  — ≤80 early taps drawn from the DELAY/STRENGTH counter streams,
 //            amplitude law `early_tap_amps`, placed at sample d_k;
 //   late   — counter-hash uniform noise at t = pos − split_point, smoothed
@@ -50,6 +54,7 @@ constexpr int kPerThread = kTile / kThreads;    // 16 samples per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxReflections = 80;             // config.REF_COUNT_CLIP[1]
 constexpr int kStats = 8;
+constexpr int kMaxWidth = 64;                   // smoothing width cap (config allows ≤ 10)
 
 constexpr uint32_t kPhi = 0x9E3779B9u;          // ops/rng.py
 constexpr uint32_t kDelayStream = 0xA511E9B3u;
@@ -96,6 +101,16 @@ __device__ __forceinline__ float uniform_from_bits(uint32_t bits, float lo, floa
 __device__ __forceinline__ float noise_at(uint32_t mix, int idx, int late_length) {
   if (idx < 0 || idx >= late_length) return 0.0f;
   return uniform_from_bits(counter_bits(mix, static_cast<uint32_t>(idx)), -1.0f, 2.0f);
+}
+
+// early_tap_amps (ops/ir_synth.py), same operation order.
+__device__ __forceinline__ float early_tap_amp(int delay, float strength,
+                                               float one_minus_absorption, float directionality,
+                                               const BankShape& s) {
+  const float falloff =
+      1.0f - powf(static_cast<float>(delay) / static_cast<float>(s.actual_max_early_delay),
+                  s.delay_decay_exp);
+  return strength * one_minus_absorption * fminf(fmaxf(directionality, 0.1f), 1.0f) * falloff;
 }
 
 // Sum (take_max=false) or max (take_max=true, of non-negative values) over
@@ -157,12 +172,7 @@ rir_bank_kernel(const int32_t* __restrict__ seeds, const float* __restrict__ sca
       const int delay = 1 + static_cast<int>(counter_bits(d_mix, tid) % modulus);
       const float strength =
           uniform_from_bits(counter_bits(s_mix, tid), s.strength_lo, s.strength_span);
-      // early_tap_amps (ops/ir_synth.py), same operation order
-      const float falloff =
-          1.0f - powf(static_cast<float>(delay) / static_cast<float>(s.actual_max_early_delay),
-                      s.delay_decay_exp);
-      const float amp = strength * one_minus_absorption *
-                        fminf(fmaxf(directionality, 0.1f), 1.0f) * falloff;
+      const float amp = early_tap_amp(delay, strength, one_minus_absorption, directionality, s);
       const bool valid = tid < r_count && delay > 0 && delay < s.split_point;
       tap_delay[tid] = valid ? delay : -1;  // -1 matches no sample
       tap_amp[tid] = valid ? amp : 0.0f;
@@ -257,6 +267,215 @@ rir_bank_kernel(const int32_t* __restrict__ seeds, const float* __restrict__ sca
   }
 }
 
+// ---------------------------------------------------------------------------
+// Injected-draws bank: replaces `_rir_bank_kernel` (ir_synth_pallas.py:318,
+// reached through `_injected_bank`, :553) — the oracle-parity path, where the
+// IRs come from explicit draws (`IRDraws`) instead of the counter hash.
+//
+// Same grid, tile, output layout and stats as rir_bank_kernel, so the same
+// epilogue applies.  What differs:
+//   - taps: delays/strengths (B, 80) are read from memory;
+//   - tail: the noise is data, (B, noise_stride) flat.  Each block stages its
+//     tile plus a halo of w − 1 samples in shared memory (zeros outside
+//     [0, late_length): the 'same' smoothing's zero padding), and each sample
+//     sums its w neighbours there in tap order k = 0..w−1, as the plain
+//     `_moving_average_same` does;
+//   - the degenerate-smoothing rule of `synthesize` (ops/ir_synth.py): when
+//     std(smoothed) ≤ 1e-6 the tail is the RAW noise, not the smoothed one.
+//     std(smoothed) is a reduction over every tile of the entry, so the last
+//     block of each entry to finish (an atomic ticket in `done`) Chan-combines
+//     the entry's tile stats, and only if the entry is degenerate rewrites its
+//     tail as raw noise · initial_amp · envelope, re-takes the per-tile
+//     max|tail| (slot 5) and sets slot 7 of tile 0 to 1 — the epilogue then
+//     skips the variance restore for that entry.  One launch; no host sync.
+//
+// Bound: memory.  It reads the noise once (+ (w−1)/4096 halo) and writes
+// early and late: at B=48 × 72,000, ~14 MB read and ~28 MB written.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+rir_bank_injected_kernel(const int32_t* __restrict__ delays,
+                         const float* __restrict__ strengths,
+                         const float* __restrict__ noise, int noise_stride,
+                         const float* __restrict__ scal, float* __restrict__ early,
+                         float* __restrict__ late, float* __restrict__ stats,
+                         int* __restrict__ done, BankShape s) {
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const float one_minus_absorption = scal[b * 4 + 0];
+  const float directionality = scal[b * 4 + 1];
+  const float log_decay = scal[b * 4 + 2];
+  const float initial_amp = scal[b * 4 + 3];
+  const int base = tile * kTile;
+  float* early_row = early + static_cast<size_t>(b) * s.length;
+  float* late_row = late + static_cast<size_t>(b) * s.length;
+  const float* noise_row = noise + static_cast<size_t>(b) * noise_stride;
+
+  // --- early taps (ref :258-268) from the injected draws ---
+  __shared__ int tap_delay[kMaxReflections];
+  __shared__ float tap_amps[kMaxReflections];
+  const bool has_taps = s.early_active && base < s.split_point;  // block-uniform
+  const int r_count = min(kMaxReflections, s.reflection_count);
+  if (has_taps) {
+    if (tid < kMaxReflections) {
+      const int delay = delays[b * kMaxReflections + tid];
+      const float strength = strengths[b * kMaxReflections + tid];
+      const float amp = early_tap_amp(delay, strength, one_minus_absorption, directionality, s);
+      const bool valid = tid < r_count && delay > 0 && delay < s.split_point;
+      tap_delay[tid] = valid ? delay : -1;  // -1 matches no sample
+      tap_amps[tid] = valid ? amp : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  // --- noise tile + smoothing halo in shared memory ---
+  __shared__ float s_noise[kTile + kMaxWidth - 1];
+  const bool has_late = s.late_length > 0;
+  const int w = s.smooth_width;
+  const bool smooth = w > 1 && s.late_length >= w;
+  const int width = smooth ? w : 1;
+  const int lead = smooth ? w / 2 : 0;
+  const int t0 = base - s.split_point;  // tail index of the tile's first sample
+  if (has_late) {
+    for (int i = tid; i < kTile + width - 1; i += kThreads) {
+      const int idx = t0 - lead + i;
+      s_noise[i] = (idx >= 0 && idx < s.late_length) ? noise_row[idx] : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  float noise_v[kPerThread];
+  float smooth_v[kPerThread];
+  uint32_t valid_mask = 0;
+  float sum_n = 0.0f, sum_s = 0.0f, count = 0.0f, max_e = 0.0f, max_t = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int local = j * kThreads + tid;
+    const int pos = base + local;
+    float e = 0.0f;
+    if (has_taps) {
+      for (int k = 0; k < r_count; ++k) {
+        if (tap_delay[k] == pos) e += tap_amps[k];
+      }
+    }
+    float nz = 0.0f, sm = 0.0f, tail = 0.0f;
+    bool valid = false;
+    if (has_late) {
+      const int t = pos - s.split_point;
+      valid = t >= 0 && t < s.late_length;
+      nz = s_noise[local + lead];  // 0 outside the tail
+      if (smooth) {
+        // np.convolve 'same': tap k reads noise[t + k − lead]
+        float acc = 0.0f;
+        for (int k = 0; k < w; ++k) acc += s_noise[local + k];
+        sm = acc / static_cast<float>(w);
+      } else {
+        sm = nz;
+      }
+      const float envelope = expf(static_cast<float>(max(t, 0)) * log_decay);
+      tail = valid ? sm * initial_amp * envelope : 0.0f;
+    }
+    if (pos < s.length) {
+      early_row[pos] = e;
+      late_row[pos] = tail;
+    }
+    noise_v[j] = nz;
+    smooth_v[j] = valid ? sm : 0.0f;
+    valid_mask |= (valid ? 1u : 0u) << j;
+    sum_n += nz;
+    sum_s += smooth_v[j];
+    count += valid ? 1.0f : 0.0f;
+    max_e = fmaxf(max_e, fabsf(e));
+    max_t = fmaxf(max_t, fabsf(tail));
+  }
+
+  // --- per-tile stats, as rir_bank_kernel ---
+  const float n_b = block_reduce(count, false);
+  const float tot_n = block_reduce(sum_n, false);
+  const float tot_s = block_reduce(sum_s, false);
+  const float denom = fmaxf(n_b, 1.0f);
+  const float mean_n = tot_n / denom;
+  const float mean_s = tot_s / denom;
+  float m2_n = 0.0f, m2_s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    if (valid_mask & (1u << j)) {
+      const float dn = noise_v[j] - mean_n;
+      const float ds = smooth_v[j] - mean_s;
+      m2_n += dn * dn;
+      m2_s += ds * ds;
+    }
+  }
+  m2_n = block_reduce(m2_n, false);
+  m2_s = block_reduce(m2_s, false);
+  max_e = block_reduce(max_e, true);
+  max_t = block_reduce(max_t, true);
+  const int n_tiles = gridDim.x;
+  float* entry_stats = stats + static_cast<size_t>(b) * n_tiles * kStats;
+  if (tid == 0) {
+    float* out = entry_stats + tile * kStats;
+    out[0] = tot_n;
+    out[1] = m2_n;
+    out[2] = tot_s;
+    out[3] = m2_s;
+    out[4] = max_e;
+    out[5] = max_t;
+    out[6] = n_b;
+    out[7] = 0.0f;  // 1 in tile 0 = raw-noise fallback (set below)
+  }
+  if (!(has_late && smooth)) return;  // no variance restore → no fallback
+
+  // --- last block of this entry: the degenerate-smoothing decision ---
+  __shared__ int is_last;
+  __threadfence();  // this block's stats and tail are visible device-wide
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(done + b, 1) == n_tiles - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // Chan-combined variance of the smoothed tail, as `_finalize_bank`
+  const float n = static_cast<float>(s.late_length);
+  float sums = 0.0f, m2s = 0.0f;
+  for (int i = tid; i < n_tiles; i += kThreads) {
+    sums += __ldcg(entry_stats + i * kStats + 2);
+    m2s += __ldcg(entry_stats + i * kStats + 3);
+  }
+  sums = block_reduce(sums, false);
+  m2s = block_reduce(m2s, false);
+  const float mean = sums / n;
+  float between = 0.0f;
+  for (int i = tid; i < n_tiles; i += kThreads) {
+    const float nb = __ldcg(entry_stats + i * kStats + 6);
+    const float d = __ldcg(entry_stats + i * kStats + 2) / fmaxf(nb, 1.0f) - mean;
+    between += nb * (d * d);
+  }
+  between = block_reduce(between, false);
+  const float std_s = sqrtf(fmaxf((m2s + between) / n, 0.0f));
+  if (std_s > 1e-6f) return;  // block-uniform: the smoothed tail stands
+
+  // degenerate: the tail is the raw noise (synthesize's fallback)
+  for (int i = 0; i < n_tiles; ++i) {
+    float mx = 0.0f;
+    for (int local = tid; local < kTile; local += kThreads) {
+      const int pos = i * kTile + local;
+      if (pos >= s.length) break;
+      const int t = pos - s.split_point;
+      float v = 0.0f;
+      if (t >= 0 && t < s.late_length) {
+        const float envelope = expf(static_cast<float>(t) * log_decay);
+        v = noise_row[t] * initial_amp * envelope;
+      }
+      late_row[pos] = v;
+      mx = fmaxf(mx, fabsf(v));
+    }
+    mx = block_reduce(mx, true);
+    if (tid == 0) entry_stats[i * kStats + 5] = mx;
+  }
+  if (tid == 0) entry_stats[7] = 1.0f;
+}
+
 }  // namespace
 
 // Launch the bank on `stream`.  Pointers: seeds (B,) int32, scal (B, 4)
@@ -289,5 +508,44 @@ extern "C" int rir_bank_launch(const void* seeds, const void* scal, void* early,
       static_cast<const int32_t*>(seeds), static_cast<const float*>(scal),
       static_cast<float*>(early), static_cast<float*>(late),
       static_cast<float*>(stats), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the injected-draws bank on `stream`.  Pointers: delays (B, 80)
+// int32, strengths (B, 80) float32, noise (B, noise_stride) float32 with
+// noise_stride ≥ max(1, late_length), scal (B, 4) float32, early/late
+// (B, length) float32, stats (B, n_tiles, 8) float32, done (B,) int32
+// zeroed — all contiguous on the current device; the caller allocates them.
+// Returns 0 or the CUDA error of the launch.
+extern "C" int rir_bank_injected_launch(const void* delays, const void* strengths,
+                                        const void* noise, int noise_stride,
+                                        const void* scal, void* early, void* late,
+                                        void* stats, void* done, int batch, int tile,
+                                        int length, int split_point,
+                                        int actual_max_early_delay, int reflection_count,
+                                        int late_length, int smooth_width,
+                                        int early_active, float delay_decay_exp,
+                                        void* stream) {
+  if (tile != kTile || batch <= 0 || batch > 65535 || length <= 0 ||
+      smooth_width > kMaxWidth || noise_stride < max(1, late_length)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BankShape s;
+  s.length = length;
+  s.split_point = split_point;
+  s.actual_max_early_delay = actual_max_early_delay;
+  s.reflection_count = reflection_count;
+  s.late_length = late_length;
+  s.smooth_width = smooth_width;
+  s.early_active = early_active;
+  s.strength_lo = 0.0f;  // unused: the strengths are injected
+  s.strength_span = 0.0f;
+  s.delay_decay_exp = delay_decay_exp;
+  const dim3 grid((length + kTile - 1) / kTile, batch);
+  rir_bank_injected_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(delays), static_cast<const float*>(strengths),
+      static_cast<const float*>(noise), noise_stride, static_cast<const float*>(scal),
+      static_cast<float*>(early), static_cast<float*>(late), static_cast<float*>(stats),
+      static_cast<int*>(done), s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,12 +4,14 @@
 into this package's, reading every field as NumPy through ``np.asarray`` and
 ``._asdict()`` — no JAX import here — so tests can feed identical static
 shapes and scalars to both packages.  ``draws_from_numpy`` mirrors the JAX
-package's ``ops.ir_synth.draws_to_device`` (the oracle-parity injection).
+package's ``ops.ir_synth.draws_to_device`` (the oracle-parity injection for
+the plain ``synthesize``); ``bank_draws`` packs a list of ``IRDraws`` into
+the injected-draws bank's inputs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,6 +19,7 @@ import torch
 from audio_raytracing_studio_tpu.params import IRDraws
 
 from ..ops.ir_synth import MAX_REFLECTIONS, IRScalars, IRShape
+from ..ops.ir_synth_cuda import pack_draws
 from .pipeline import InternalSetup, MixScalars, StaticSpec
 
 
@@ -37,11 +40,8 @@ def from_jax_setup(setup) -> InternalSetup:
     )
 
 
-def draws_from_numpy(
-    draws: IRDraws, device="cpu"
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pad host IRDraws to the static tap budget → (delays, strengths, noise)
-    tensors on ``device``."""
+def _check_taps(draws: IRDraws) -> int:
+    """Tap count of ``draws``; more than the static budget raises."""
     n = len(draws.delays)
     if n > MAX_REFLECTIONS:
         # derive_ir_geometry does not clip reflection_count (only the
@@ -52,6 +52,15 @@ def draws_from_numpy(
             f"MAX_REFLECTIONS={MAX_REFLECTIONS} (the reference product path "
             "clips to the same range, raytracer_studio.py:224)"
         )
+    return n
+
+
+def draws_from_numpy(
+    draws: IRDraws, device="cpu"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pad host IRDraws to the static tap budget → (delays, strengths, noise)
+    tensors on ``device``."""
+    n = _check_taps(draws)
     delays = np.zeros(MAX_REFLECTIONS, dtype=np.int32)
     strengths = np.zeros(MAX_REFLECTIONS, dtype=np.float32)
     delays[:n] = draws.delays
@@ -60,3 +69,21 @@ def draws_from_numpy(
     if noise.size == 0:
         noise = np.zeros(1, dtype=np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (delays, strengths, noise))
+
+
+def bank_draws(
+    draws: Sequence[IRDraws], shape: IRShape, device="cpu"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ``IRDraws`` per bank entry → the injected bank's (delays (B, 80),
+    strengths (B, 80), noise (B, max(1, late_length))) tensors on ``device``
+    (``ir_synth_cuda.pack_draws``; more than 80 taps raise)."""
+    r = max(_check_taps(d) for d in draws)
+    delays = np.zeros((len(draws), r), dtype=np.int32)
+    strengths = np.zeros((len(draws), r), dtype=np.float32)
+    noise = np.zeros((len(draws), max(1, shape.late_length)), dtype=np.float32)
+    for i, d in enumerate(draws):
+        delays[i, : len(d.delays)] = d.delays
+        strengths[i, : len(d.strengths)] = d.strengths
+        k = min(noise.shape[1], len(d.noise))
+        noise[i, :k] = np.asarray(d.noise[:k], dtype=np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in pack_draws(shape, delays, strengths, noise))

@@ -1,8 +1,9 @@
 """End-to-end render graphs — port of ``audio_raytracing_studio_tpu/models/pipeline.py``.
 
-Internal-hall render over a batch: IR synthesis, batched FFT convolution,
-air absorption, dry/wet mix with dry-kill, shelf EQ, conditional
-normalizations, 5.1 panning and layout mapping (raytracer_studio.py:338-571).
+Internal-hall and external-IR renders over a batch: IR synthesis (or an
+external true-stereo IR), batched FFT convolution, air absorption, dry/wet
+mix with dry-kill, shelf EQ, conditional normalizations, 5.1 panning and
+layout mapping (raytracer_studio.py:338-571), and optionally the meter.
 Tensors are channels-leading with an explicit batch dim, (B, C, N); the host
 wrappers keep the reference's (N, C) convention.
 
@@ -14,7 +15,7 @@ with the JAX package) and enter as float32; the static branch decisions
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,12 +102,25 @@ def _col(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mix_eq_spatial(
-    dry: torch.Tensor, wet: torch.Tensor, scal: MixScalars, spec: StaticSpec
+    dry: torch.Tensor,
+    wet: torch.Tensor,
+    scal: MixScalars,
+    spec: StaticSpec,
+    eq_lengths: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """Shared back half: dry/wet mix → EQ → normalize → pan → map (B, C, N)."""
+    """Shared back half: dry/wet mix → EQ → normalize → pan → map (B, C, N).
+
+    ``eq_lengths``: per-clip true output lengths of a zero-padded batch —
+    the EQ then runs on each clip at its true length (zeros past it),
+    overriding ``spec.eq_on`` (``filters.apply_shelf_eq_padded``).
+    """
     dry_coef = scal.dry_factor * (1.0 - scal.dry_wet)
     mixed = _col(dry_coef) * dry + _col(scal.dry_wet) * wet
-    if spec.eq_on:
+    if eq_lengths is not None:
+        mixed = filters.apply_shelf_eq_padded(
+            mixed, spec.rate, scal.bass_gain, scal.treble_gain, eq_lengths
+        )
+    elif spec.eq_on:
         mixed = filters.apply_shelf_eq(mixed, spec.rate, scal.bass_gain, scal.treble_gain)
     mixed = filters.conditional_peak_normalize(mixed)
 
@@ -123,6 +137,7 @@ def internal_graph_with_irs(
     late_ir: torch.Tensor,
     scal: MixScalars,
     spec: StaticSpec,
+    eq_lengths: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Internal-hall render from prebuilt IRs (e.g. the fused RIR bank).
 
@@ -172,7 +187,7 @@ def internal_graph_with_irs(
         wet = torch.zeros((batch, audio.shape[1], len_out), device=audio.device)
 
     dry = torch.nn.functional.pad(audio, (0, len_out - spec.n_in))
-    return _mix_eq_spatial(dry, wet, scal, spec)
+    return _mix_eq_spatial(dry, wet, scal, spec, eq_lengths)
 
 
 def internal_graph(
@@ -189,6 +204,22 @@ def internal_graph(
     ``synthesize``, then ``internal_graph_with_irs``."""
     early_ir, late_ir = ir_synth.synthesize(ir_shape, delays, strengths, noise, ir_scalars)
     return internal_graph_with_irs(audio, early_ir[None], late_ir[None], scal, spec)
+
+
+def external_graph(
+    audio: torch.Tensor,
+    ir: torch.Tensor,
+    scal: MixScalars,
+    spec: StaticSpec,
+    eq_lengths: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """External true-stereo IR render: L⊛IR_L, R⊛IR_R, mix, map.
+
+    audio (B, 2, n_in); ir (2, L), shared by the batch → (B, channels, len_out).
+    """
+    wet = convolution.convolve_pairwise(audio, ir, spec.len_out)
+    dry = torch.nn.functional.pad(audio, (0, spec.len_out - spec.n_in))
+    return _mix_eq_spatial(dry, wet, scal, spec, eq_lengths)
 
 
 def quantize_pcm16(x: torch.Tensor) -> torch.Tensor:
@@ -234,6 +265,48 @@ def _mix_scalars(p: RenderParams, early_lvl: float, late_lvl: float) -> MixScala
         x_pos=f(np.clip(p.x_pos, 0.0, 1.0)),
         y_pos=f(np.clip(p.y_pos, 0.0, 1.0)),
         z_pos=f(np.clip(p.z_pos, 0.0, 1.0)),
+    )
+
+
+def prepare_external_ir(ir, ir_rate: int, target_rate: int, device="cpu") -> torch.Tensor:
+    """Validate and Fourier-resample an external IR to the clip's rate →
+    (L, 2) float32 tensor on ``device``.
+
+    Mirrors raytracer_studio.py:1034-1041: resample on a rate mismatch
+    (``ops.resample.resample_fft``, scipy.signal.resample's semantics),
+    reject non-stereo — before any resample.
+    """
+    ir = np.asarray(ir, dtype=np.float32)
+    if ir.ndim != 2:
+        raise ValueError("External IR must be a 2-D (samples, channels) array.")
+    if ir.size == 0:
+        raise ValueError("External IR is empty.")
+    if ir.shape[1] != 2:
+        raise ValueError("External IR must be stereo.")
+    ir_t = torch.from_numpy(np.ascontiguousarray(ir)).to(device)
+    if ir_rate != target_rate:
+        from ..ops.resample import resample_fft
+
+        n_resampled = int(ir.shape[0] * target_rate / ir_rate)
+        if n_resampled <= 0:
+            raise ValueError("Resampling would produce an empty IR.")
+        if ir.shape[0] < 2:
+            raise ValueError("External IR too short to resample.")
+        ir_t = resample_fft(ir_t, n_resampled)
+    return ir_t
+
+
+def external_spec(p: RenderParams, rate: int, n_in: int, ir_length: int) -> StaticSpec:
+    """Static config of an external-IR render (no air, no early/late split)."""
+    return StaticSpec(
+        n_in=n_in,
+        ir_length=ir_length,
+        rate=int(rate),
+        layout=p.target_layout,
+        eq_on=eq_enabled(p.bass_gain, p.treble_gain),
+        air_on=False,
+        early_on=False,
+        late_on=False,
     )
 
 
@@ -303,41 +376,71 @@ def build_internal_setup(
     )
 
 
+def metrics_dicts(metrics: dict, batch: int) -> list:
+    """(B,)-tensor metrics → one host dict of floats per clip."""
+    host = {k: v.reshape(batch).cpu().tolist() for k, v in metrics.items()}
+    return [{k: float(v[i]) for k, v in host.items()} for i in range(batch)]
+
+
 def render(
     audio: np.ndarray,
     rate: int,
     p: RenderParams,
     seed: Optional[int] = None,
     draws: Optional[IRDraws] = None,
+    external_ir: Optional[np.ndarray] = None,
+    external_ir_rate: Optional[int] = None,
+    return_metrics: bool = False,
     fast_filters: bool = False,
     device="cuda",
-) -> np.ndarray:
-    """Render one clip → (len_out, channels) float32 on the host.
+):
+    """Render one clip → (len_out, channels) float32 on the host, or
+    ``(audio, metrics)`` with ``return_metrics`` (LUFS, sample peak and RMS
+    from the on-device meter, ``metering.loudness.audio_metrics``).
 
-    Randomness comes from ``seed`` (the counter-based stream; the IRs come
-    from the fused RIR bank — the CUDA kernel on a GPU) or from injected
-    ``draws`` (oracle parity; plain ``synthesize``, as in the JAX package).
-    External-IR mode waits for the resampler port.
+    Internal hall: randomness comes from ``seed`` (the counter-based stream;
+    IRs from the fused RIR bank) or from injected ``draws`` (oracle parity;
+    on a GPU the injected-draws CUDA bank, on the CPU the plain
+    ``synthesize``, as in the JAX package).  External mode
+    (``p.use_external_ir``): pass ``external_ir`` (samples, 2) and its rate
+    if it differs from ``rate``.
     """
-    if p.use_external_ir:
-        raise NotImplementedError(
-            "external-IR mode is not ported yet (needs ops/resample.py)"
-        )
     from . import convert  # imports this module
 
     dev = resolve_device(device)
     audio_nc = _ensure_stereo_host(audio)
     audio_t = torch.from_numpy(np.ascontiguousarray(audio_nc.T))[None].to(dev)
-    setup = build_internal_setup(p, rate, audio_nc.shape[0], fast_filters=fast_filters)
-    mix = MixScalars.stack([setup.mix_scalars], dev)
-    if draws is not None:
-        delays, strengths, noise = convert.draws_from_numpy(draws, dev)
-        out = internal_graph(
-            audio_t, delays, strengths, noise, setup.ir_scalars, mix,
-            setup.ir_shape, setup.spec,
-        )
+    n_in = audio_nc.shape[0]
+    if p.use_external_ir:
+        if external_ir is None:
+            raise ValueError("use_external_ir=True requires external_ir data")
+        ir = prepare_external_ir(external_ir, external_ir_rate or rate, rate, dev)
+        spec = external_spec(p, rate, n_in, ir.shape[0])
+        mix = MixScalars.stack([_mix_scalars(p, 1.0, 1.0)], dev)
+        out = external_graph(audio_t, ir.T, mix, spec)
     else:
-        seeds = torch.from_numpy(ir_synth.seeds_to_int32([0 if seed is None else seed]))
-        early_ir, late_ir = fused_rir_bank(seeds.to(dev), setup.ir_shape, setup.ir_scalars)
-        out = internal_graph_with_irs(audio_t, early_ir, late_ir, mix, setup.spec)
-    return out[0].cpu().numpy().T
+        setup = build_internal_setup(p, rate, n_in, fast_filters=fast_filters)
+        mix = MixScalars.stack([setup.mix_scalars], dev)
+        if draws is not None and dev.type == "cpu":
+            delays, strengths, noise = convert.draws_from_numpy(draws, dev)
+            out = internal_graph(
+                audio_t, delays, strengths, noise, setup.ir_scalars, mix,
+                setup.ir_shape, setup.spec,
+            )
+        else:
+            if draws is not None:
+                injected = convert.bank_draws([draws], setup.ir_shape, dev)
+                seeds = torch.zeros(1, dtype=torch.int32)
+            else:
+                injected = None
+                seeds = torch.from_numpy(ir_synth.seeds_to_int32([0 if seed is None else seed]))
+            early_ir, late_ir = fused_rir_bank(
+                seeds.to(dev), setup.ir_shape, setup.ir_scalars, injected_draws=injected
+            )
+            out = internal_graph_with_irs(audio_t, early_ir, late_ir, mix, setup.spec)
+    result = out[0].cpu().numpy().T
+    if return_metrics:
+        from ..metering import loudness
+
+        return result, metrics_dicts(loudness.audio_metrics(out, int(rate)), 1)[0]
+    return result

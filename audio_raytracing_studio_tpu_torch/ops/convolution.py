@@ -77,3 +77,20 @@ def convolve_combined(
     combined = (weights[:, :, None] * ker_f).sum(dim=1)  # (B, F)
     full = torch.fft.irfft(sig_f * combined[:, None, :], n=nfft)
     return full[..., :out_length]
+
+
+def convolve_pairwise(
+    signal: torch.Tensor, kernels: torch.Tensor, out_length: int
+) -> torch.Tensor:
+    """True-stereo convolution, channel c ⊛ kernel c (external-IR mode:
+    L⊛IR_L, R⊛IR_R, raytracer_studio.py:430-431).
+
+    signal (B, C, N); kernels (C, L), shared by the batch, or (B, C, L) →
+    (B, C, out_length) float32.
+    """
+    need = max(out_length, signal.shape[-1] + kernels.shape[-1] - 1)
+    nfft = fast_fft_length(need)
+    full = torch.fft.irfft(
+        torch.fft.rfft(signal, n=nfft) * torch.fft.rfft(kernels, n=nfft), n=nfft
+    )
+    return full[..., :out_length]

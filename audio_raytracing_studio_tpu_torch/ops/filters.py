@@ -116,6 +116,32 @@ def apply_shelf_eq(
     return _circular_gain(signal, shelf_eq_gain(n, rate, bass_gain, treble_gain))
 
 
+def apply_shelf_eq_padded(
+    signal: torch.Tensor,
+    rate: int,
+    bass_gain: torch.Tensor,
+    treble_gain: torch.Tensor,
+    lengths,
+) -> torch.Tensor:
+    """Shelf EQ of zero-padded clips, each at its TRUE length.
+
+    signal (B, C, L); ``lengths``: per-clip true lengths n0 ≤ L (host ints).
+    The circular EQ is parity-bearing at the true length (its brick-wall
+    masks ring over the whole circle), so clip b is filtered on
+    ``signal[b, :, :n0]`` at length n0 and is zero past it — the semantics
+    of the JAX package's ``apply_shelf_eq_dynamic``.  Clips with the same
+    n0 share one call.
+    """
+    out = torch.zeros_like(signal)
+    lengths = [int(n0) for n0 in lengths]
+    for n0 in sorted(set(lengths)):
+        idx = torch.tensor([b for b, m in enumerate(lengths) if m == n0], device=signal.device)
+        out[idx, :, :n0] = apply_shelf_eq(
+            signal[idx, :, :n0], rate, bass_gain[idx], treble_gain[idx]
+        )
+    return out
+
+
 def conditional_peak_normalize(x: torch.Tensor) -> torch.Tensor:
     """Rescale each clip only if its |x|max > 1; zero out sub-1e-9 residue.
 

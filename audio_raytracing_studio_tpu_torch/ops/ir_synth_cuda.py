@@ -1,19 +1,28 @@
-"""Fused RIR-bank synthesis — port of ``audio_raytracing_studio_tpu/ops/ir_synth_pallas.py``
-(the hash path: ``fused_rir_bank`` → ``_hash_bank`` → ``_rir_block_kernel``).
+"""Fused RIR-bank synthesis — port of ``audio_raytracing_studio_tpu/ops/ir_synth_pallas.py``.
 
-The bank builds B (early, late) IR pairs from per-entry seeds with the
-counter-based stream of ``ops.rng`` — the same values ``ir_synth.hash_draws``
-draws, so the bank and the plain ``synthesize`` path agree to float
-round-off.  Two producers of the raw IRs and per-tile stats:
+The bank builds B (early, late) IR pairs in one launch, from one of two
+sources of randomness:
 
-- ``_rir_block_cuda``: the hand-written CUDA kernel ``csrc/rir_bank.cu``
-  (route: nvcc → ctypes), launched for CUDA tensors;
-- ``_rir_block_plain``: the same function in plain PyTorch over
-  (B, n_tiles, TILE), used for CPU tensors and as the kernel's reference.
+- **hash draws** (``fused_rir_bank`` → ``_hash_bank`` → ``_rir_block_kernel``
+  in JAX): per-entry seeds through the counter-based stream of ``ops.rng`` —
+  the same values ``ir_synth.hash_draws`` draws, so the bank and the plain
+  ``synthesize`` path agree to float round-off;
+- **injected draws** (``fused_rir_bank(..., injected_draws=...)`` →
+  ``_injected_bank`` → ``_rir_bank_kernel`` in JAX): explicit delays,
+  strengths and noise (``pack_draws``), the oracle-parity path.
 
-Both feed ``_finalize_bank`` (plain torch), which Chan-combines the per-tile
+Each source has two producers of the raw IRs and per-tile stats:
+
+- the hand-written CUDA kernels of ``csrc/rir_bank.cu`` (route: nvcc →
+  ctypes), ``_rir_block_cuda`` and ``_rir_bank_cuda``, launched for CUDA
+  tensors;
+- their plain PyTorch versions ``_rir_block_plain`` and ``_rir_bank_plain``
+  over (B, n_tiles, TILE), used for CPU tensors and as the kernels'
+  reference.
+
+All feed ``_finalize_bank`` (plain torch), which Chan-combines the per-tile
 moments and folds the variance restore and the 0.9/0.7 peak normalizations
-into one scale per entry.  A CUDA tensor never takes the plain path: the
+into one scale per entry.  A CUDA tensor never takes a plain path: the
 kernel launches or the call raises.
 """
 
@@ -21,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,23 +43,26 @@ from .ir_synth import MAX_REFLECTIONS, IRScalars, IRShape, early_tap_amps
 TILE = 4096  # samples per tile; csrc/rir_bank.cu kTile must match
 N_STATS = 8  # per-(entry, tile) partials — see csrc/rir_bank.cu
 
-# Launches of the CUDA kernel in this process; the plain path never counts.
-launch_count = 0
+# Launches of each CUDA kernel in this process; the plain paths never count.
+launch_count = 0  # rir_bank_kernel (hash draws)
+injected_launch_count = 0  # rir_bank_injected_kernel (injected draws)
 
 
 def n_tiles(shape: IRShape) -> int:
     return max(1, -(-shape.length // TILE))
 
 
-def _rir_block_plain(
-    seeds: torch.Tensor, scal: torch.Tensor, shape: IRShape
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel → raw early, late (B, length) and
-    stats (B, n_tiles, 8), vectorised over (B, n_tiles, TILE)."""
-    device = seeds.device
-    batch = seeds.shape[0]
+def _bank_plain(scal, shape: IRShape, batch: int, taps, noise_at, with_raw_tail=False):
+    """Plain PyTorch body shared by both sources, vectorised over
+    (B, n_tiles, TILE) → raw early, late (B, length), stats (B, n_tiles, 8)
+    and, with ``with_raw_tail``, the unsmoothed tail (B, length).
+
+    taps: ``(delays, strengths)`` (B, MAX_REFLECTIONS) or None;
+    noise_at(idx): noise at tail indices idx (1, P) int64 → (B or 1, P),
+    zero outside [0, late_length).
+    """
+    device = scal.device
     nblk = n_tiles(shape)
-    seed64 = seeds.to(torch.int64)[:, None]
     one_minus_absorption, directionality, log_decay, initial_amp = (
         scal[:, i, None] for i in range(4)
     )
@@ -59,14 +71,8 @@ def _rir_block_plain(
     # --- early taps (ref :258-268) ---
     early = torch.zeros((batch, nblk * TILE), dtype=torch.float32, device=device)
     if shape.early_taps_active:
+        delays, strengths = taps
         k = torch.arange(MAX_REFLECTIONS, dtype=torch.int64, device=device)[None, :]
-        hi = max(2, shape.actual_max_early_delay)
-        d_bits = rng.counter_bits(rng.stream_mix(seed64, rng.DELAY_STREAM), k)
-        delays = 1 + d_bits % max(1, hi - 1)
-        strengths = rng.uniform_from_bits(
-            rng.counter_bits(rng.stream_mix(seed64, rng.STRENGTH_STREAM), k),
-            *config.EARLY_STRENGTH_RANGE,
-        )
         amps = early_tap_amps(
             delays, strengths, shape.actual_max_early_delay,
             one_minus_absorption, directionality,
@@ -82,21 +88,16 @@ def _rir_block_plain(
 
     # --- late tail (ref :270-296) ---
     late = torch.zeros_like(early)
+    raw_tail = None
     noise = smoothed = valid_tail = None
     if shape.late_length > 0:
-        noise_mix = rng.stream_mix(seed64, rng.NOISE_STREAM)
-        t = pos - shape.split_point  # tail index; noise counter
-
-        def noise_at(idx):
-            u = rng.uniform_from_bits(rng.counter_bits(noise_mix, idx), -1.0, 1.0)
-            return torch.where((idx >= 0) & (idx < shape.late_length), u, 0.0)
-
-        noise = noise_at(t)
+        t = pos - shape.split_point  # tail index
+        noise = noise_at(t).expand(batch, -1)
         w = shape.noise_smooth_width
         if w > 1 and shape.late_length >= w:
             lead = w // 2
             acc = torch.zeros_like(noise)
-            for k in range(w):  # 'same' smoothing, re-hashed at shifted indices
+            for k in range(w):  # 'same' smoothing: tap k reads noise[t + k − lead]
                 acc = acc + (noise if k == lead else noise_at(t + (k - lead)))
             smoothed = acc / float(w)
         else:
@@ -104,8 +105,10 @@ def _rir_block_plain(
         valid_tail = (t >= 0) & (t < shape.late_length)
         envelope = torch.exp(t.clamp(min=0).to(torch.float32) * log_decay)
         late = torch.where(valid_tail, smoothed * initial_amp * envelope, 0.0)
+        if with_raw_tail:
+            raw_tail = torch.where(valid_tail, noise * initial_amp * envelope, 0.0)
 
-    # --- per-tile stats, same meaning as the kernel's ---
+    # --- per-tile stats, same meaning as the kernels' ---
     stats = torch.zeros((batch, nblk, N_STATS), dtype=torch.float32, device=device)
     tiles = (batch, nblk, TILE)
     if noise is not None:
@@ -122,7 +125,77 @@ def _rir_block_plain(
         stats[..., 5] = late.reshape(tiles).abs().amax(-1)
         stats[..., 6] = n_b
     stats[..., 4] = early.reshape(tiles).abs().amax(-1)
-    return early[:, : shape.length], late[:, : shape.length], stats
+    length = shape.length
+    raw_tail = None if raw_tail is None else raw_tail[:, :length]
+    return early[:, :length], late[:, :length], stats, raw_tail
+
+
+def _rir_block_plain(
+    seeds: torch.Tensor, scal: torch.Tensor, shape: IRShape
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``rir_bank_kernel`` (hash draws) → raw early,
+    late (B, length) and stats (B, n_tiles, 8)."""
+    seed64 = seeds.to(torch.int64)[:, None]
+    taps = None
+    if shape.early_taps_active:
+        k = torch.arange(MAX_REFLECTIONS, dtype=torch.int64, device=seeds.device)[None, :]
+        hi = max(2, shape.actual_max_early_delay)
+        d_bits = rng.counter_bits(rng.stream_mix(seed64, rng.DELAY_STREAM), k)
+        strengths = rng.uniform_from_bits(
+            rng.counter_bits(rng.stream_mix(seed64, rng.STRENGTH_STREAM), k),
+            *config.EARLY_STRENGTH_RANGE,
+        )
+        taps = (1 + d_bits % max(1, hi - 1), strengths)
+    noise_mix = rng.stream_mix(seed64, rng.NOISE_STREAM)
+
+    def noise_at(idx):  # re-hashed at any index: counter-based draws
+        u = rng.uniform_from_bits(rng.counter_bits(noise_mix, idx), -1.0, 1.0)
+        return torch.where((idx >= 0) & (idx < shape.late_length), u, 0.0)
+
+    early, late, stats, _ = _bank_plain(scal, shape, seeds.shape[0], taps, noise_at)
+    return early, late, stats
+
+
+def _rir_bank_plain(
+    delays: torch.Tensor,
+    strengths: torch.Tensor,
+    noise: torch.Tensor,
+    scal: torch.Tensor,
+    shape: IRShape,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``rir_bank_injected_kernel`` (injected draws,
+    ``pack_draws`` layout) → raw early, late (B, length), stats (B, n_tiles, 8).
+
+    Includes the kernel's degenerate-smoothing rule: an entry whose smoothed
+    tail has std ≤ 1e-6 gets the raw noise tail, its per-tile max|tail|
+    re-taken, and slot 7 of tile 0 set to 1 (``synthesize``'s fallback).
+    """
+    batch = delays.shape[0]
+    padded = torch.nn.functional.pad(noise, (0, 1))  # column late_length.. reads 0
+    last = padded.shape[1] - 1
+
+    def noise_at(idx):
+        inside = (idx >= 0) & (idx < shape.late_length)
+        col = torch.where(inside, idx, last).expand(batch, -1)
+        return torch.gather(padded, 1, col)
+
+    taps = (delays.to(torch.int64), strengths) if shape.early_taps_active else None
+    early, late, stats, raw_tail = _bank_plain(
+        scal, shape, batch, taps, noise_at, with_raw_tail=True
+    )
+    if _smoothing_active(shape):
+        std_s = _tail_stds(stats, shape)[1]
+        raw = ~(std_s > 1e-6)  # (B,)
+        if bool(raw.any()):
+            late = torch.where(raw[:, None], raw_tail, late)
+            nblk = stats.shape[1]
+            per_tile = torch.nn.functional.pad(late, (0, nblk * TILE - shape.length))
+            stats[:, :, 5] = torch.where(
+                raw[:, None], per_tile.reshape(batch, nblk, TILE).abs().amax(-1),
+                stats[:, :, 5],
+            )
+            stats[:, 0, 7] = raw.to(torch.float32)
+    return early, late, stats
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,32 +253,113 @@ def _rir_block_cuda(
     return early, late, stats
 
 
+@functools.lru_cache(maxsize=None)
+def _injected_launcher():
+    """Bind ``rir_bank_injected_launch`` from csrc/rir_bank.cu (same library)."""
+    from ..utils import kernels
+
+    fn = kernels.load("rir_bank").rir_bank_injected_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3  # delays, strengths, noise
+        + [ctypes.c_int]  # noise row stride
+        + [ctypes.c_void_p] * 5  # scal, early, late, stats, done
+        + [ctypes.c_int] * 9  # batch, tile, the seven IRShape ints
+        + [ctypes.c_float]  # delay decay exp
+        + [ctypes.c_void_p]  # cudaStream_t
+    )
+    return fn
+
+
+def _rir_bank_cuda(
+    delays: torch.Tensor,
+    strengths: torch.Tensor,
+    noise: torch.Tensor,
+    scal: torch.Tensor,
+    shape: IRShape,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``rir_bank_injected_kernel`` → raw early, late (B, length),
+    stats (B, n_tiles, 8)."""
+    global injected_launch_count
+    device = delays.device
+    batch = delays.shape[0]
+    if device.type != "cuda" or any(x.device != device for x in (strengths, noise, scal)):
+        raise ValueError(
+            "rir_bank_injected needs delays, strengths, noise and scalars on one CUDA "
+            f"device, got {[str(x.device) for x in (delays, strengths, noise, scal)]}"
+        )
+    expect = {
+        "delays": (delays, torch.int32, (batch, MAX_REFLECTIONS)),
+        "strengths": (strengths, torch.float32, (batch, MAX_REFLECTIONS)),
+        "scalars": (scal, torch.float32, (batch, 4)),
+    }
+    for name, (x, dtype, dims) in expect.items():
+        if x.dtype != dtype or tuple(x.shape) != dims:
+            raise ValueError(f"{name} must be {dims} {dtype}, got {tuple(x.shape)} {x.dtype}")
+    if (noise.dtype != torch.float32 or noise.dim() != 2 or noise.shape[0] != batch
+            or noise.shape[1] < max(1, shape.late_length)):
+        raise ValueError(
+            f"noise must be (B, >= {max(1, shape.late_length)}) float32, "
+            f"got {tuple(noise.shape)} {noise.dtype}"
+        )
+    if not all(x.is_contiguous() for x in (delays, strengths, noise, scal)):
+        raise ValueError("delays, strengths, noise and scalars must be contiguous")
+    launch = _injected_launcher()
+    early = torch.empty((batch, shape.length), dtype=torch.float32, device=device)
+    late = torch.empty_like(early)
+    stats = torch.empty((batch, n_tiles(shape), N_STATS), dtype=torch.float32, device=device)
+    done = torch.zeros((batch,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = launch(
+            delays.data_ptr(), strengths.data_ptr(), noise.data_ptr(), noise.shape[1],
+            scal.data_ptr(), early.data_ptr(), late.data_ptr(), stats.data_ptr(),
+            done.data_ptr(), batch, TILE, shape.length, shape.split_point,
+            shape.actual_max_early_delay, shape.reflection_count, shape.late_length,
+            shape.noise_smooth_width, int(shape.early_taps_active),
+            config.EARLY_DELAY_DECAY_EXP, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rir_bank_injected launch failed with CUDA error {err}")
+    injected_launch_count += 1
+    return early, late, stats
+
+
+def _smoothing_active(shape: IRShape) -> bool:
+    w = shape.noise_smooth_width
+    return shape.late_length > 0 and w > 1 and shape.late_length >= w
+
+
+def _tail_stds(stats: torch.Tensor, shape: IRShape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(std of the raw noise, std of the smoothed noise) over the tail, per
+    entry, Chan-combining the per-tile centered moments:
+    var = (Σ M2_b + Σ n_b·(mean_b − mean)²)/n."""
+    n = float(shape.late_length)
+    n_b = stats[:, :, 6]  # valid tail samples per tile (Σ = late_length)
+
+    def _std(sums, m2s):
+        mean = sums.sum(dim=1) / n
+        mean_b = sums / n_b.clamp(min=1.0)
+        between = (n_b * (mean_b - mean[:, None]).square()).sum(dim=1)
+        return ((m2s.sum(dim=1) + between) / n).clamp(min=0.0).sqrt()
+
+    return _std(stats[:, :, 0], stats[:, :, 1]), _std(stats[:, :, 2], stats[:, :, 3])
+
+
 def _finalize_bank(early_raw, late_raw, stats, shape: IRShape):
     """Global normalizations from per-tile partials (ref :289-290, :299-303).
 
     Scalar factors commute with |·| maxima, so the smoothing variance
     restore (std_raw/std_smooth) and the 0.9/0.7 peak normalizations fold
-    into one per-entry multiplier.
+    into one per-entry multiplier.  Slot 7 of tile 0 marks an injected entry
+    whose tail fell back to raw noise: it gets no variance restore.
     """
     max_e = stats[:, :, 4].amax(dim=1)
     max_t = stats[:, :, 5].amax(dim=1)
-
-    w = shape.noise_smooth_width
-    if shape.late_length > 0 and w > 1 and shape.late_length >= w:
-        n = float(shape.late_length)
-        n_b = stats[:, :, 6]  # valid tail samples per tile (Σ = late_length)
-
-        def _variance(sums, m2s):
-            """Chan-combine per-tile centered moments:
-            var = (Σ M2_b + Σ n_b·(mean_b − mean)²)/n."""
-            mean = sums.sum(dim=1) / n
-            mean_b = sums / n_b.clamp(min=1.0)
-            between = (n_b * (mean_b - mean[:, None]).square()).sum(dim=1)
-            return ((m2s.sum(dim=1) + between) / n).clamp(min=0.0)
-
-        std_n = _variance(stats[:, :, 0], stats[:, :, 1]).sqrt()
-        std_s = _variance(stats[:, :, 2], stats[:, :, 3]).sqrt()
+    if _smoothing_active(shape):
+        std_n, std_s = _tail_stds(stats, shape)
         c = torch.where(std_s > 1e-6, std_n / std_s, 1.0)
+        c = torch.where(stats[:, 0, 7] > 0, 1.0, c)
     else:
         c = torch.ones_like(max_t)
 
@@ -215,22 +369,60 @@ def _finalize_bank(early_raw, late_raw, stats, shape: IRShape):
     return early_raw * early_scale[:, None], late_raw * late_scale[:, None]
 
 
+def pack_draws(
+    shape: IRShape, delays: np.ndarray, strengths: np.ndarray, noise: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-entry explicit draws → the injected bank's flat inputs.
+
+    delays/strengths: (B, R ≤ MAX_REFLECTIONS) → (B, MAX_REFLECTIONS) int32 /
+    float32, zero-padded; noise: (B, ≥ late_length) → (B, max(1, late_length))
+    float32 (extra columns dropped, missing ones zero).
+    """
+    delays = np.asarray(delays)
+    batch, r = delays.shape
+    if r > MAX_REFLECTIONS:
+        raise ValueError(
+            f"injected draws carry {r} early taps; the static budget is "
+            f"MAX_REFLECTIONS={MAX_REFLECTIONS}"
+        )
+    d = np.zeros((batch, MAX_REFLECTIONS), dtype=np.int32)
+    s = np.zeros((batch, MAX_REFLECTIONS), dtype=np.float32)
+    d[:, :r] = delays
+    s[:, :r] = np.asarray(strengths)
+    noise = np.asarray(noise, dtype=np.float32)
+    cols = max(1, shape.late_length)
+    n = np.zeros((batch, cols), dtype=np.float32)
+    n[:, : min(cols, noise.shape[1])] = noise[:, :cols]
+    return d, s, n
+
+
 def fused_rir_bank(
-    seeds: torch.Tensor, shape: IRShape, scalars: IRScalars
+    seeds: torch.Tensor,
+    shape: IRShape,
+    scalars: IRScalars,
+    injected_draws: Optional[Sequence] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Synthesize a bank of (early, late) IRs → two (B, length) float32 tensors.
 
     seeds: (B,) int32 tensor — one counter-based stream per entry (use
-    ``ir_synth.seeds_to_int32`` for seeds ≥ 2^31); its device picks the
-    producer: the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor.  scalars: IRScalars of scalars or (B,) arrays (broadcast).
+    ``ir_synth.seeds_to_int32`` for seeds ≥ 2^31; ignored with
+    ``injected_draws``); its device picks the producer: the CUDA kernel for
+    a CUDA tensor, the plain version for a CPU tensor.  scalars: IRScalars
+    of scalars or (B,) arrays (broadcast).  injected_draws: the
+    ``pack_draws`` triple (arrays or tensors) — explicit randomness, any IR
+    length.
     """
     batch = seeds.shape[0]
-    scal = scalars.table(batch, seeds.device)
-    if seeds.device.type == "cuda":
+    device = seeds.device
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_rir_bank runs on cuda or cpu tensors, not {device}")
+    scal = scalars.table(batch, device)
+    if injected_draws is not None:
+        d, s, n = (torch.as_tensor(x, device=device).contiguous() for x in injected_draws)
+        producer = _rir_bank_cuda if device.type == "cuda" else _rir_bank_plain
+        raw = producer(d.to(torch.int32), s.to(torch.float32), n.to(torch.float32), scal, shape)
+    elif device.type == "cuda":
         raw = _rir_block_cuda(seeds.contiguous(), scal, shape)
-    elif seeds.device.type == "cpu":
-        raw = _rir_block_plain(seeds, scal, shape)
     else:
-        raise ValueError(f"fused_rir_bank runs on cuda or cpu tensors, not {seeds.device}")
+        raw = _rir_block_plain(seeds, scal, shape)
     return _finalize_bank(*raw, shape)

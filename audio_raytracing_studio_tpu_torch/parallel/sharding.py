@@ -2,11 +2,12 @@
 ``audio_raytracing_studio_tpu/parallel/sharding.py`` (no mesh yet).
 
 One batch renders as one pass of batched tensor ops: the fused RIR bank
-(the CUDA kernel on a GPU) synthesizes every clip's IRs, then the internal
-graph convolves, mixes and maps all clips at once.  Value-parameter sweeps
-(air, position, mix, EQ, levels) share a batch; shape-determining
-parameters (hall type, room size, z position, clip length, rate, layout)
-must match across it.
+(the CUDA kernel on a GPU) synthesizes every clip's IRs — or one external
+stereo IR serves the whole batch — then the graph convolves, mixes and maps
+all clips at once, and optionally meters them (``with_metrics``) and
+quantizes to PCM16 on the device.  Value-parameter sweeps (air, position,
+mix, EQ, levels) share a batch; shape-determining parameters (hall type,
+room size, z position, clip length, rate, layout) must match across it.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from audio_raytracing_studio_tpu.metering import kweighting as kw
 from audio_raytracing_studio_tpu.params import RenderParams, eq_enabled
 
+from ..metering import loudness
 from ..models import pipeline
 from ..ops import ir_synth
 from ..ops.ir_synth_cuda import fused_rir_bank
@@ -32,16 +35,17 @@ def _batched_internal(
     mix_scalars: pipeline.MixScalars,
     ir_shape: ir_synth.IRShape,
     spec: pipeline.StaticSpec,
-    pcm16: bool = False,
     ir_backend: str = "bank",
+    eq_lengths: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """Device-resident batched render → (B, channels, len_out).
+    """Device-resident batched render → (B, channels, len_out) float32.
 
     audio (B, 2, n_in) and seeds (B,) int32 live on the render device;
     ir_scalars holds (B,) arrays, mix_scalars (B,) tensors on that device.
     ``ir_backend="bank"`` takes the IRs from ``fused_rir_bank``;
     ``"jnp"`` (named after the JAX package's backend) runs the plain
     per-clip ``synthesize`` on the same seeds, for comparison only.
+    ``eq_lengths``: per-clip true output lengths for the EQ of padded clips.
     """
     if ir_backend == "bank":
         early, late = fused_rir_bank(seeds, ir_shape, ir_scalars)
@@ -58,8 +62,26 @@ def _batched_internal(
         late = torch.stack([l for _, l in pairs])
     else:
         raise ValueError(f"ir_backend must be one of {IR_BACKENDS}, got {ir_backend!r}")
-    out = pipeline.internal_graph_with_irs(audio, early, late, mix_scalars, spec)
-    return pipeline.quantize_pcm16(out) if pcm16 else out
+    return pipeline.internal_graph_with_irs(audio, early, late, mix_scalars, spec, eq_lengths)
+
+
+def _meter_and_quantize(out: torch.Tensor, rate: int, with_metrics: bool, pcm16: bool,
+                        valid_lens: Optional[Sequence[int]]):
+    """Shared epilogue: meter each clip (masked to its true output length
+    when given — zero-padded tails stay out of the measurement), then
+    optionally quantize to the int16 output contract on the device."""
+    metrics = None
+    if with_metrics:
+        if valid_lens is None:
+            metrics = loudness.audio_metrics(out, rate)
+        else:
+            # block counts are float64 host math (kweighting.block_count)
+            blocks = [kw.block_count(v, rate) for v in valid_lens]
+            as_t = lambda xs: torch.tensor(xs, dtype=torch.int64, device=out.device)  # noqa: E731
+            metrics = loudness.audio_metrics_masked(out, rate, as_t(valid_lens), as_t(blocks))
+    if pcm16:
+        out = pipeline.quantize_pcm16(out)
+    return out, metrics
 
 
 def render_batch(
@@ -71,19 +93,27 @@ def render_batch(
     with_metrics: bool = False,
     ir_backend: str = "bank",
     fast_filters: bool = False,
+    external_ir: Optional[np.ndarray] = None,
+    external_ir_rate: Optional[int] = None,
     clip_lengths: Optional[Sequence[int]] = None,
     pcm16_output: bool = False,
+    async_results: bool = False,
     real_batch: Optional[int] = None,
     device="cuda",
-) -> np.ndarray:
+):
     """Render a batch of clips (B, N) or (B, N, C) on one device.
 
     ``params`` is one RenderParams (shared) or one per clip — all must agree
-    on shape-determining fields; value fields may sweep freely.
+    on shape-determining fields; value fields may sweep freely.  External
+    mode (every clip ``use_external_ir``): one ``external_ir`` (samples, 2)
+    at ``external_ir_rate`` (default ``rate``) serves the whole batch.
 
-    ``clip_lengths``: per-clip true input lengths of a zero-padded batch.
-    Without metering they change nothing, except that a padded clip with EQ
-    on needs the length-dynamic EQ, which is not ported yet and raises.
+    ``clip_lengths``: per-clip TRUE input lengths of a zero-padded batch.
+    Metrics then measure each clip's true output span
+    ``min(len, N) + ir_len − 1``, and padded clips with shelf EQ are
+    EQ'd at that true length (``filters.apply_shelf_eq_padded``).
+
+    ``with_metrics``: the on-device meter (LUFS, sample peak, RMS) per clip.
 
     ``pcm16_output=True`` quantizes to the 16-bit output contract on the
     device (``pipeline.quantize_pcm16``) and returns int16.
@@ -91,12 +121,13 @@ def render_batch(
     ``real_batch``: the first ``real_batch`` rows are real jobs; pad rows are
     dropped on the device before the copy to the host.
 
-    Returns (B, len_out, channels) float32 (int16 with ``pcm16_output``).
+    Returns (B, len_out, channels) float32 (int16 with ``pcm16_output``) —
+    plus a list of per-clip metric dicts with ``with_metrics``.
     """
     if device_mesh is not None:
         raise NotImplementedError("multi-device rendering is not ported yet")
-    if with_metrics:
-        raise NotImplementedError("on-device metering is not ported yet")
+    if async_results:
+        raise NotImplementedError("async_results is not ported yet")
     if ir_backend not in IR_BACKENDS:
         raise ValueError(f"ir_backend must be one of {IR_BACKENDS}, got {ir_backend!r}")
     dev = pipeline.resolve_device(device)
@@ -108,74 +139,102 @@ def render_batch(
     param_list = list(params) if isinstance(params, (list, tuple)) else [params] * batch
     if len(param_list) != batch:
         raise ValueError(f"{len(param_list)} params for batch of {batch}")
-    if any(p.use_external_ir for p in param_list):
-        raise NotImplementedError(
-            "external-IR mode is not ported yet (needs ops/resample.py)"
-        )
     if real_batch is not None and not 1 <= real_batch <= batch:
         raise ValueError(f"real_batch {real_batch} outside [1, {batch}]")
+    if clip_lengths is not None and len(clip_lengths) != batch:
+        raise ValueError(f"{len(clip_lengths)} clip_lengths for batch of {batch}")
 
     clips = [pipeline._ensure_stereo_host(audio[i]) for i in range(batch)]
     n_in = clips[0].shape[0]
+    audio_t = torch.from_numpy(np.stack([c.T for c in clips])).to(dev)
 
-    if clip_lengths is not None:
-        if len(clip_lengths) != batch:
-            raise ValueError(f"{len(clip_lengths)} clip_lengths for batch of {batch}")
-        if any(
+    def true_lengths(ir_length: int):
+        """Per-clip true output lengths, or None for an unpadded batch."""
+        if clip_lengths is None:
+            return None
+        return [min(int(tl), n_in) + ir_length - 1 for tl in clip_lengths]
+
+    def eq_lengths(ir_length: int):
+        """True lengths for the EQ when a padded clip has EQ on, else None
+        (the static EQ at the buffer length is then exact for every clip)."""
+        if clip_lengths is None or not any(
             int(tl) != n_in and eq_enabled(p.bass_gain, p.treble_gain)
             for tl, p in zip(clip_lengths, param_list)
         ):
-            raise NotImplementedError(
-                "a padded clip with shelf EQ needs the length-dynamic EQ, "
-                "which is not ported yet"
-            )
+            return None
+        return true_lengths(ir_length)
 
-    setups = [
-        pipeline.build_internal_setup(p, rate, n_in, fast_filters=fast_filters)
-        for p in param_list
-    ]
-    # The on/off stage flags derive from sweepable VALUES (EQ gains, air
-    # factor, early/late levels), so a sweep can flip them per clip.  Widen
-    # them batch-wide: zero early/late weight is an exact no-op, unity EQ
-    # gain and a zeroed air factor are identity gain curves.  Only genuinely
-    # shape-determining mismatches (layout, rate, IR geometry) reject.
-    widened = dict(
-        eq_on=any(s.spec.eq_on for s in setups),
-        air_on=any(s.spec.air_on for s in setups),
-        early_on=any(s.spec.early_on for s in setups),
-        late_on=any(s.spec.late_on for s in setups),
-    )
-    spec0 = setups[0].spec._replace(**widened)
-    shape0 = setups[0].ir_shape
-    for s in setups[1:]:
-        sw = s.spec._replace(**widened)
-        if sw != spec0 or s.ir_shape != shape0:
-            detail = (
-                f"spec {sw} vs {spec0}" if sw != spec0
-                else f"IR geometry {s.ir_shape} vs {shape0} — z_pos, "
-                     "room_size and hall_type set the IR length"
-            )
+    if any(p.use_external_ir for p in param_list):
+        if not all(p.use_external_ir for p in param_list):
+            raise ValueError("mixed internal/external modes in one batch")
+        if external_ir is None:
+            raise ValueError("use_external_ir=True requires external_ir")
+        if any(p.target_layout != param_list[0].target_layout for p in param_list):
             raise ValueError(
-                "shape-determining parameters must match across a batch "
-                f"({detail}); bucket your sweep by shape"
+                "external-IR batch requires one target_layout for all clips "
+                "(shape-determining); bucket your batch by layout"
             )
+        ir = pipeline.prepare_external_ir(external_ir, external_ir_rate or rate, rate, dev)
+        ir_length = ir.shape[0]
+        spec = pipeline.external_spec(param_list[0], rate, n_in, ir_length)._replace(
+            eq_on=any(eq_enabled(p.bass_gain, p.treble_gain) for p in param_list)
+        )
+        mix = pipeline.MixScalars.stack(
+            [pipeline._mix_scalars(p, 1.0, 1.0) for p in param_list], dev
+        )
+        out = pipeline.external_graph(audio_t, ir.T, mix, spec, eq_lengths(ir_length))
+    else:
+        setups = [
+            pipeline.build_internal_setup(p, rate, n_in, fast_filters=fast_filters)
+            for p in param_list
+        ]
+        # The on/off stage flags derive from sweepable VALUES (EQ gains, air
+        # factor, early/late levels), so a sweep can flip them per clip.  Widen
+        # them batch-wide: zero early/late weight is an exact no-op, unity EQ
+        # gain and a zeroed air factor are identity gain curves.  Only genuinely
+        # shape-determining mismatches (layout, rate, IR geometry) reject.
+        widened = dict(
+            eq_on=any(s.spec.eq_on for s in setups),
+            air_on=any(s.spec.air_on for s in setups),
+            early_on=any(s.spec.early_on for s in setups),
+            late_on=any(s.spec.late_on for s in setups),
+        )
+        spec = setups[0].spec._replace(**widened)
+        shape0 = setups[0].ir_shape
+        for s in setups[1:]:
+            sw = s.spec._replace(**widened)
+            if sw != spec or s.ir_shape != shape0:
+                detail = (
+                    f"spec {sw} vs {spec}" if sw != spec
+                    else f"IR geometry {s.ir_shape} vs {shape0} — z_pos, "
+                         "room_size and hall_type set the IR length"
+                )
+                raise ValueError(
+                    "shape-determining parameters must match across a batch "
+                    f"({detail}); bucket your sweep by shape"
+                )
+        if seeds is None:
+            seeds = range(batch)
+        if len(seeds) != batch:
+            raise ValueError(f"{len(seeds)} seeds for batch of {batch}")
+        ir_length = spec.ir_length
+        out = _batched_internal(
+            audio_t,
+            torch.from_numpy(ir_synth.seeds_to_int32(seeds)).to(dev),
+            ir_synth.IRScalars.stack([s.ir_scalars for s in setups]),
+            pipeline.MixScalars.stack([s.mix_scalars for s in setups], dev),
+            shape0,
+            spec,
+            ir_backend=ir_backend,
+            eq_lengths=eq_lengths(ir_length),
+        )
 
-    if seeds is None:
-        seeds = range(batch)
-    if len(seeds) != batch:
-        raise ValueError(f"{len(seeds)} seeds for batch of {batch}")
-    seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds)).to(dev)
-    audio_t = torch.from_numpy(np.stack([c.T for c in clips])).to(dev)
-    out = _batched_internal(
-        audio_t,
-        seeds_t,
-        ir_synth.IRScalars.stack([s.ir_scalars for s in setups]),
-        pipeline.MixScalars.stack([s.mix_scalars for s in setups], dev),
-        shape0,
-        spec0,
-        pcm16=pcm16_output,
-        ir_backend=ir_backend,
-    )
+    valid_lens = true_lengths(ir_length)
     if real_batch is not None:
         out = out[:real_batch]
-    return out.cpu().numpy().transpose(0, 2, 1)
+        valid_lens = None if valid_lens is None else valid_lens[:real_batch]
+    out, metrics = _meter_and_quantize(out, int(rate), with_metrics, pcm16_output, valid_lens)
+    result = out.cpu().numpy().transpose(0, 2, 1)
+    if with_metrics:
+        return result, pipeline.metrics_dicts(metrics, out.shape[0])
+    return result

@@ -6,8 +6,10 @@ On the ``bench.py`` configuration (Room hall, Stereo, EQ off, 48 kHz) it
 times, for each filter mode, every stage of ``sharding._batched_internal``
 alone with CUDA events on device-resident inputs — the IR bank, the conv
 FFTs, the exact-length air filter, the back half (mix, normalizes, pan,
-layout) — then the whole render, and runs one render under
-``torch.profiler`` for the kernel time by name and the device's busy share.
+layout) — then the whole render, the meter's stages on its output (the
+K-weighting FIR, the float64 block energies, the gates, peak and RMS), and
+runs one render and one meter pass under ``torch.profiler`` for the kernel
+time by name and the device's busy share.
 Prints one JSON line per mode, each naming the card and its power limit.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -22,6 +24,8 @@ import time
 
 import numpy as np
 import torch
+
+from ..metering import loudness
 
 RATE = 48000
 
@@ -137,7 +141,29 @@ def stage_times(clips: np.ndarray, fast: bool) -> dict:
         return sharding._batched_internal(audio, seeds, ir_sc, mix, shape, spec)
 
     stages["whole"] = event_ms(render)
-    return {"stages_ms": stages, **profiled(render)}
+    out = render()
+    stages.update(meter_stages(out))
+    meter = profiled(lambda: loudness.audio_metrics(out, RATE))
+    return {"stages_ms": stages, **profiled(render),
+            "meter_top_kernels_ms": meter["top_kernels_ms"]}
+
+
+def meter_stages(out: torch.Tensor) -> dict:
+    """The meter (``loudness.audio_metrics``) on a (B, C, n) render, by stage."""
+    mono = loudness._mono(out)
+    filtered = loudness.k_weight(mono, RATE)
+    z = loudness.block_mean_squares(filtered, RATE)[..., None, :]
+    one = torch.ones(1, dtype=torch.float64, device=out.device)
+    return {
+        "meter_mono": event_ms(lambda: loudness._mono(out)),
+        "meter_k_weight": event_ms(lambda: loudness.k_weight(mono, RATE)),
+        "meter_block_energies": event_ms(lambda: loudness.block_mean_squares(filtered, RATE)),
+        "meter_gates": event_ms(lambda: loudness.gated_loudness_from_blocks(z, one)),
+        "meter_peak_rms": event_ms(
+            lambda: (loudness.sample_peak_dbfs(out), loudness.rms_dbfs(out))
+        ),
+        "meter_whole": event_ms(lambda: loudness.audio_metrics(out, RATE)),
+    }
 
 
 def main(argv=None) -> int:

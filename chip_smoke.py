@@ -2,26 +2,42 @@
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
-Drives the port's main path — the batched internal-hall render that
-``bench.py`` times for the JAX package (B=48 mono clips, 60 s at 48 kHz,
-Room hall, Stereo layout, EQ off, fast and exact filter modes) — through
-``render_batch``, and checks it.  Phases, one line each:
+Drives the port's paths at full size and checks them:
+
+- the main path — the batched internal-hall render that ``bench.py`` times
+  for the JAX package (B=48 mono clips, 60 s at 48 kHz, Room hall, Stereo,
+  EQ off, fast and exact filter modes) through ``render_batch``;
+- the oracle-parity path — ``render(draws=..., return_metrics=True)`` through
+  the injected-draws bank, and external IRs, held to the float64 oracle
+  (``audio_raytracing_studio_tpu/oracle``, NumPy/SciPy only);
+- the metered, padded batch — ``render_batch(with_metrics=True,
+  clip_lengths=..., pcm16_output=True)`` at B=48 × 60 s, EQ off and on.
+
+Phases, one line each:
 
 1. environment: torch/CUDA versions, card name and power limit, TF32 off;
-2. build: compiles ``csrc/rir_bank.cu`` with nvcc from this checkout;
-3. bank check: the CUDA RIR-bank kernel against its plain PyTorch version
-   on the card (bench shape with seeds ≥ 2^31; a multi-tile Cathedral IR);
-4. main path: fast and exact renders at full size, one kernel launch each,
-   output checks, clips 0 and 47 against the port's plain path on the CPU,
-   and one PCM16 render;
-5. timing: realtime factor of both modes on device-resident inputs (settle,
-   then the median of 3), and the bank kernel's time beside the plain
-   version's (CUDA events).
+2. build: compiles ``csrc/rir_bank.cu`` (both launchers) with nvcc;
+3. bank check: the hash-draws kernel against its plain PyTorch version on
+   the card (bench shape with seeds ≥ 2^31; a multi-tile Cathedral IR);
+3b. injected bank check: the injected-draws kernel against its plain version
+   (bench shape B=48, each entry its own draws; Cathedral 346,809 samples;
+   split_point 1 at length 4096; a degenerate-smoothing entry), one counted
+   launch per call;
+4. main path: fast and exact renders, one kernel launch each, output
+   checks, clips 0 and 47 against the port's plain path on the CPU, PCM16;
+4b. parity: BASELINE configs 1-5 on one 60 s clip (1 and 3 also in fast
+   mode; 2 through ``external_ir``, plus a 44.1 kHz IR) against the oracle:
+   ≤ 1e-3 max-abs, the PCM16 LSB rule, ≤ 0.01 LU, peak and RMS ≤ 0.01 dB;
+4c. metered padded batch: mixed true lengths, EQ off (fast) and on (exact);
+   clips 0 and 47 against the CPU path and the oracle meter;
+5. timing: realtime factor of both modes, unmetered and metered, on
+   device-resident inputs (settle, then the median of 3); the meter alone;
+   both kernels' times beside their plain versions' (CUDA events).
 
-Then one JSON line per kernel, the card's name and power limit, and the
-last line ``{"ok": true, "device": {...}}``.  Any failure raises: the exit
-code is non-zero and no result line is printed.  Without a CUDA device, or
-without the rest of the checkout, it exits non-zero at once.
+Then one JSON line listing the kernels, the card's name and power limit, and
+the last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
+exit code is non-zero and no result line is printed.  Without a CUDA device,
+or without the rest of the checkout, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -39,6 +55,9 @@ DURATION_S = 60.0
 RATE = 48000
 BANK_TOL = 2e-5  # kernel vs plain bank on the card: float round-off (sum order, expf/powf ulps)
 RENDER_TOL = 1e-4  # card vs CPU render: cuFFT vs pocketFFT float32 over 3·2^20 and 2,951,999 points
+ORACLE_TOL = 1e-3  # the parity contract (PARITY.md, tests/test_parity.py)
+LU_TOL = 0.01  # meter vs oracle meter, and card vs CPU meter (PARITY.md item 2)
+DB_TOL = 0.01  # sample peak and RMS, dB
 
 
 class SmokeFailure(RuntimeError):
@@ -90,6 +109,168 @@ def settled_wall(torch, fn, settle_max: int = 12, samples: int = 3):
     return runs[len(runs) // 2], settle, runs
 
 
+def injected_draws(bank, shape, batch: int, seed: int, degenerate=()):
+    """Seeded NumPy draws per entry in the injected bank's layout, on the
+    card; entries in ``degenerate`` get ±1e-4 alternating noise, which the
+    10-tap smoothing cancels (std(smoothed) ≤ 1e-6 → raw-noise fallback)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    hi = max(2, shape.actual_max_early_delay)
+    delays = rng.integers(1, hi, size=(batch, bank.MAX_REFLECTIONS))
+    strengths = rng.uniform(0.3, 0.8, size=(batch, bank.MAX_REFLECTIONS))
+    noise = rng.uniform(-1.0, 1.0, size=(batch, max(1, shape.late_length)))
+    for b in degenerate:
+        noise[b] = np.where(np.arange(noise.shape[1]) % 2 == 0, 1e-4, -1e-4)
+    return [torch.from_numpy(a).cuda() for a in bank.pack_draws(shape, delays, strengths, noise)]
+
+
+def check_metrics(got: dict, want: dict, what: str) -> list:
+    """|Δ| of LUFS, peak and RMS (equal infinities count as 0), each held to
+    its tolerance."""
+    d = [0.0 if float(got[k]) == float(want[k]) else abs(float(got[k]) - float(want[k]))
+         for k in ("lufs", "true_peak_dbfs", "rms_dbfs")]
+    check(d[0] <= LU_TOL and d[1] <= DB_TOL and d[2] <= DB_TOL,
+          f"{what}: metrics {got} vs {want}")
+    return d
+
+
+def parity_phase(np, pipeline, bank, mono) -> dict:
+    """BASELINE configs 1-5 on one 60 s clip through the card's parity path,
+    each held to the float64 oracle render and oracle meter."""
+    from scipy import signal
+
+    # the float64 reference: NumPy/SciPy only, no JAX
+    from audio_raytracing_studio_tpu.oracle import dsp
+    from audio_raytracing_studio_tpu.oracle.loudness import calculate_audio_metrics
+    from audio_raytracing_studio_tpu_torch import IRDraws, RenderParams
+
+    rng = np.random.default_rng(0x0C0FFEE)
+    n_ir = 4800  # tests/test_parity.py's config-2 IR
+    ir = (rng.standard_normal((n_ir, 2)) * np.exp(-np.arange(n_ir) / 800.0)[:, None] * 0.3)
+    ir = ir.astype(np.float32)
+    ir[0] = 1.0
+    ir44 = (rng.standard_normal((2205, 2)) * 0.2).astype(np.float32)
+    ir48 = signal.resample(ir44, 2400, axis=0).astype(np.float32)  # scipy, not the port
+    configs = [
+        ("config1", RenderParams(target_layout="Stereo"), False, None),
+        ("config1", RenderParams(target_layout="Stereo"), True, None),
+        ("config2_external", RenderParams(use_external_ir=True, dry_wet=0.7,
+                                          dry_wet_kill_start=0.4, bass_gain=1.6,
+                                          treble_gain=0.6, target_layout="Stereo"),
+         False, (ir, None, ir)),
+        ("config2_ir44k1", RenderParams(use_external_ir=True, target_layout="Stereo"), False,
+         (ir44, 44100, ir48)),
+    ]
+    cathedral = RenderParams(hall_type="Cathedral", room_size=600.0, air_absorption=0.5,
+                             diffusion=0.8, target_layout="Stereo")
+    configs += [("config3", cathedral, False, None), ("config3", cathedral, True, None),
+                ("config4_51", RenderParams(x_pos=0.2, y_pos=0.8, z_pos=0.3,
+                                            target_layout="5.1 (Standard)"), False, None),
+                ("config5_71", RenderParams(target_layout="7.1 (Surround)", z_pos=0.7),
+                 False, None),
+                ("config5_512", RenderParams(target_layout="5.1.2 (Atmos Light)", z_pos=0.7),
+                 False, None)]
+    oracle_s = 0.0
+    internal = 0
+    for name, p, fast, external in configs:
+        label = f"{name} {'fast' if fast else 'exact'}"
+        t0 = time.perf_counter()
+        if external is None:
+            geometry = pipeline._internal_static(p, RATE, 1, False)[0]
+            draws = IRDraws.sample(np.random.default_rng(123), geometry)
+            before = bank.injected_launch_count
+            out, metrics = pipeline.render(mono, RATE, p, draws=draws, fast_filters=fast,
+                                           return_metrics=True, device="cuda")
+            check(bank.injected_launch_count == before + 1,
+                  f"{label}: render(draws=...) did not launch the injected kernel once")
+            internal += 1
+        else:
+            ir_in, ir_rate, ir_oracle = external
+            out, metrics = pipeline.render(mono, RATE, p, external_ir=ir_in,
+                                           external_ir_rate=ir_rate, return_metrics=True,
+                                           device="cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if external is None:
+            ref = dsp.render(mono, RATE, p, draws=draws)
+        else:
+            ref = dsp.render(mono, RATE, p, external_ir=ir_oracle)
+        ref_metrics = calculate_audio_metrics(ref, RATE)
+        host_s = time.perf_counter() - t0
+        oracle_s += host_s
+        check(out.shape == ref.shape, f"{label}: shape {out.shape} vs oracle {ref.shape}")
+        check(bool(np.isfinite(out).all()), f"{label}: non-finite output")
+        err = float(np.abs(out.astype(np.float64) - ref).max())
+        lsb = int(np.abs(dsp.quantize_pcm16(out).astype(np.int32)
+                         - dsp.quantize_pcm16(ref).astype(np.int32)).max())
+        check(err <= ORACLE_TOL, f"{label}: max-abs {err} vs oracle > {ORACLE_TOL}")
+        check(lsb <= max(1, int(np.ceil(ORACLE_TOL * 32768))), f"{label}: PCM16 {lsb} LSB")
+        d = check_metrics(metrics, ref_metrics, label)
+        print(f"[4b parity] {label}: {out.shape} max-abs {err:.3e} pcm16 {lsb} LSB "
+              f"lufs {metrics['lufs']:.4f} (oracle {ref_metrics['lufs']:.4f}, d {d[0]:.2e} LU) "
+              f"peak d {d[1]:.2e} dB rms d {d[2]:.2e} dB; card {card_s:.2f} s, "
+              f"oracle host {host_s:.2f} s", flush=True)
+    print(f"[4b parity] {len(configs)} renders ({internal} through the injected kernel), "
+          f"oracle host total {oracle_s:.1f} s", flush=True)
+    return {"oracle_s": oracle_s, "internal_renders": internal}
+
+
+def metered_batch_phase(np, sharding, bank, clips) -> None:
+    """render_batch(with_metrics, clip_lengths, pcm16) at B=48 × 60 s with
+    mixed true lengths, EQ off and on; clips 0 and 47 against the CPU path
+    and the oracle meter on the trimmed output."""
+    from audio_raytracing_studio_tpu.oracle.loudness import calculate_audio_metrics
+    from audio_raytracing_studio_tpu_torch import RenderParams
+
+    n_in = clips.shape[1]
+    # the last ~20% of each clip cut by a different amount (clip 0 keeps all)
+    lengths = [n_in - int(0.2 * n_in * b / (BATCH - 1)) for b in range(BATCH)]
+    padded = clips.copy()
+    for b, tl in enumerate(lengths):
+        padded[b, tl:] = 0.0
+    pick = [0, BATCH - 1]
+    for label, p, fast in (
+        ("eq off, fast", RenderParams(target_layout="Stereo"), True),
+        ("eq on (bass 1.6, treble 0.7), exact",
+         RenderParams(target_layout="Stereo", bass_gain=1.6, treble_gain=0.7), False),
+    ):
+        before = bank.launch_count
+        t0 = time.perf_counter()
+        q, metrics = sharding.render_batch(padded, RATE, p, fast_filters=fast,
+                                           with_metrics=True, clip_lengths=lengths,
+                                           pcm16_output=True, device="cuda")
+        wall = time.perf_counter() - t0
+        check(bank.launch_count == before + 1, f"{label}: render_batch did not launch the bank once")
+        check(q.dtype == np.int16 and q.shape[0] == BATCH and len(metrics) == BATCH,
+              f"{label}: output {q.dtype} {q.shape}, {len(metrics)} metric dicts")
+        ref, ref_metrics = sharding.render_batch(
+            padded[pick], RATE, p, seeds=pick, fast_filters=fast, with_metrics=True,
+            clip_lengths=[lengths[b] for b in pick], device="cpu",
+        )
+        ir_len = q.shape[1] - n_in + 1
+        worst = [0.0, 0.0, 0.0, 0.0]
+        for i, b in enumerate(pick):
+            vlen = lengths[b] + ir_len - 1
+            deq = q[b].astype(np.float64) / 32768.0
+            want = np.clip(ref[i], -0.9999, 0.9999)
+            err = float(np.abs(deq - want).max())
+            check(err <= RENDER_TOL + 0.5 / 32768, f"{label}: clip {b} card vs CPU {err}")
+            check(not q[b, vlen:].any(), f"{label}: clip {b} not silent past its true span")
+            d_cpu = check_metrics(metrics[b], ref_metrics[i], f"{label}: clip {b} card vs CPU")
+            d_oracle = check_metrics(metrics[b], calculate_audio_metrics(deq[:vlen], RATE),
+                                     f"{label}: clip {b} vs oracle meter")
+            worst = [max(worst[0], err), max(worst[1], d_cpu[0]), max(worst[2], d_oracle[0]),
+                     max(worst[3], d_oracle[2])]
+        lufs = [m["lufs"] for m in metrics]
+        check(bool(np.isfinite(lufs).all()), f"{label}: non-finite LUFS")
+        print(f"[4c metered] {label}: render_batch {q.shape} {q.dtype} + {len(metrics)} metric "
+              f"dicts in {wall:.2f} s; true lengths {lengths[-1]}..{lengths[0]}; clips 0, "
+              f"{BATCH - 1}: card vs CPU max-abs {worst[0]:.3e}, lufs d {worst[1]:.2e} LU; "
+              f"vs oracle meter lufs d {worst[2]:.2e} LU, rms d {worst[3]:.2e} dB", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -102,6 +283,7 @@ def main() -> int:
     import numpy as np
 
     from audio_raytracing_studio_tpu_torch import RenderParams
+    from audio_raytracing_studio_tpu_torch.metering import loudness
     from audio_raytracing_studio_tpu_torch.models import pipeline
     from audio_raytracing_studio_tpu_torch.ops import ir_synth
     from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda as bank
@@ -123,8 +305,9 @@ def main() -> int:
     # --- 2. build ---
     t0 = time.perf_counter()
     lib = kernels.build("rir_bank")
-    print(f"[2 build] {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    bank._launcher(), bank._injected_launcher()  # both symbols bind
+    print(f"[2 build] {os.path.relpath(lib, REPO)} (rir_bank_launch, "
+          f"rir_bank_injected_launch) in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # --- 3. bank check: kernel vs plain on the card ---
     p = RenderParams(target_layout="Stereo")
@@ -153,6 +336,39 @@ def main() -> int:
         print(f"[3 bank] {label}: B={len(seeds)} length={shape.length} tiles="
               f"{bank.n_tiles(shape)} max-abs early {errs[0]:.3e} late {errs[1]:.3e} "
               f"(tol {BANK_TOL})", flush=True)
+
+    # --- 3b. injected bank check: kernel vs plain on the card ---
+    # tests/test_pallas_rir.py's wrap regression: the tail starts at sample 1
+    # and the length is one whole tile, so the smoothing halo crosses both edges
+    split1 = ir_synth.IRShape(length=4096, split_point=1, actual_max_early_delay=1,
+                              reflection_count=25, late_length=4095, noise_smooth_width=10,
+                              early_taps_active=False)
+    injected_err = 0.0
+    for label, shape, ir_sc, batch, degenerate in (
+        ("bench", bench_setup.ir_shape, bench_setup.ir_scalars, BATCH, ()),
+        ("cathedral", cathedral.ir_shape, cathedral.ir_scalars, 4, ()),
+        ("split1", split1, bench_setup.ir_scalars, 2, ()),
+        ("degenerate", bench_setup.ir_shape, bench_setup.ir_scalars, 3, (1,)),
+    ):
+        packed = injected_draws(bank, shape, batch, seed=batch, degenerate=degenerate)
+        scal = ir_sc.table(batch, "cuda")
+        before = bank.injected_launch_count
+        raw_k = bank._rir_bank_cuda(*packed, scal, shape)
+        raw_p = bank._rir_bank_plain(*packed, scal, shape)
+        torch.cuda.synchronize()
+        check(bank.injected_launch_count == before + 1,
+              "injected kernel launch was not counted once")
+        flags_k = raw_k[2][:, 0, 7].nonzero().flatten().tolist()
+        check(flags_k == raw_p[2][:, 0, 7].nonzero().flatten().tolist() == list(degenerate),
+              f"{label}: raw-noise fallback entries {flags_k}, expected {list(degenerate)}")
+        errs = [(k - q).abs().max().item() for k, q in zip(
+            bank._finalize_bank(*raw_k, shape), bank._finalize_bank(*raw_p, shape))]
+        check(all(np.isfinite(errs)) and max(errs) <= BANK_TOL,
+              f"{label} injected kernel vs plain {errs} > {BANK_TOL}")
+        injected_err = max(injected_err, *errs)
+        print(f"[3b injected] {label}: B={batch} length={shape.length} split="
+              f"{shape.split_point} tiles={bank.n_tiles(shape)} raw-noise entries {flags_k} "
+              f"max-abs early {errs[0]:.3e} late {errs[1]:.3e} (tol {BANK_TOL})", flush=True)
 
     # --- 4. main path through render_batch ---
     clips = bench_clips(BATCH, DURATION_S)
@@ -198,6 +414,18 @@ def main() -> int:
           flush=True)
     del outputs, q
 
+    # --- 4b. parity path: render(draws=...) and external IRs vs the oracle ---
+    bank.injected_launch_count = 0
+    parity = parity_phase(np, pipeline, bank, clips[0])
+    injected_launches = bank.injected_launch_count
+    check(injected_launches == parity["internal_renders"],
+          f"{injected_launches} injected launches for {parity['internal_renders']} renders")
+
+    # --- 4c. metered padded batch through render_batch ---
+    bank.launch_count = 0
+    metered_batch_phase(np, sharding, bank, clips)
+    main_launches += bank.launch_count
+
     # --- 5. timing on device-resident inputs ---
     audio_t = torch.from_numpy(
         np.stack([pipeline._ensure_stereo_host(c).T for c in clips])
@@ -221,6 +449,24 @@ def main() -> int:
         timing[f"runs_{mode}_s"] = runs
         timing[f"settle_{mode}_s"] = settle
         timing[f"peak_mem_{mode}_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        wall, settle, runs = settled_wall(
+            torch,
+            lambda: sharding._meter_and_quantize(
+                sharding._batched_internal(audio_t, seeds_t, ir_sc, mix, setup.ir_shape,
+                                           setup.spec),
+                RATE, True, False, None,
+            ),
+        )
+        timing[f"rtf_{mode}_metered"] = BATCH * DURATION_S / wall
+        timing[f"wall_{mode}_metered_s"] = wall
+        timing[f"runs_{mode}_metered_s"] = runs
+        timing[f"settle_{mode}_metered_s"] = settle
+        timing[f"peak_mem_{mode}_metered_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rendered = sharding._batched_internal(audio_t, seeds_t, ir_sc, mix, setup.ir_shape,
+                                          setup.spec)
+    timing["meter_ms"] = cuda_ms(torch, lambda: loudness.audio_metrics(rendered, RATE), 5)
+    del rendered
     scal = bench_setup.ir_scalars.table(BATCH, "cuda")
     shape = bench_setup.ir_shape
     kernel_fn = lambda: bank._rir_block_cuda(seeds_t, scal, shape)  # noqa: E731
@@ -235,22 +481,46 @@ def main() -> int:
     timing["bank_kernel_ms"] = (kernel_a + kernel_b) / 2
     timing["bank_plain_ms"] = (plain_a + plain_b) / 2
     timing["bank_runs_ms"] = {"plain": [plain_a, plain_b], "kernel": [kernel_a, kernel_b]}
+    packed = injected_draws(bank, shape, BATCH, seed=11)
+    kernel_fn = lambda: bank._rir_bank_cuda(*packed, scal, shape)  # noqa: E731
+    plain_fn = lambda: bank._rir_bank_plain(*packed, scal, shape)  # noqa: E731
+    for fn in (kernel_fn, plain_fn):  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    plain_a = cuda_ms(torch, plain_fn, 10)
+    kernel_a = cuda_ms(torch, kernel_fn, 50)
+    kernel_b = cuda_ms(torch, kernel_fn, 50)
+    plain_b = cuda_ms(torch, plain_fn, 10)
+    timing["injected_kernel_ms"] = (kernel_a + kernel_b) / 2
+    timing["injected_plain_ms"] = (plain_a + plain_b) / 2
+    timing["injected_runs_ms"] = {"plain": [plain_a, plain_b], "kernel": [kernel_a, kernel_b]}
+    timing["oracle_host_s"] = parity["oracle_s"]
     print("[5 timing] " + json.dumps(timing), flush=True)
 
     check("jax" not in sys.modules, "jax was imported")
-    for name in ("ops", "models", "parallel"):
+    for name in ("ops", "models", "parallel", "metering.loudness"):
         check(f"audio_raytracing_studio_tpu.{name}" not in sys.modules,
               f"the JAX package's {name} was imported")
 
+    source = "audio_raytracing_studio_tpu_torch/csrc/rir_bank.cu"
     print(json.dumps({"kernels": [{
         "name": "rir_bank",
         "route": "cuda",
-        "source": "audio_raytracing_studio_tpu_torch/csrc/rir_bank.cu",
+        "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
         "launches": main_launches,
         "max_abs_err": bank_err,
         "ms": timing["bank_kernel_ms"],
         "plain_ms": timing["bank_plain_ms"],
+    }, {
+        "name": "rir_bank_injected",
+        "route": "cuda",
+        "source": source,
+        "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:318",
+        "launches": injected_launches,
+        "max_abs_err": injected_err,
+        "ms": timing["injected_kernel_ms"],
+        "plain_ms": timing["injected_plain_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Checks that need an NVIDIA GPU and nvcc: the CUDA RIR-bank kernel against
-its plain PyTorch version on the card, and the render path through it.
+"""Checks that need an NVIDIA GPU and nvcc: the CUDA RIR-bank kernels (hash
+and injected draws) against their plain PyTorch versions on the card, and the
+render paths through them.
 
 Marked ``cuda``; each test skips (with a reason) where no card is present,
 as on a CPU-only machine.  This file imports no JAX, so on the GPU machine it
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_raytracing_studio_tpu_torch import RenderParams
+from audio_raytracing_studio_tpu_torch import IRDraws, RenderParams
 from audio_raytracing_studio_tpu_torch.models import pipeline
 from audio_raytracing_studio_tpu_torch.ops import ir_synth
 from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda as bank
@@ -71,3 +72,95 @@ def test_render_batch_launches_kernel_once(cuda):
         ref = sharding.render_batch(clips, rate, p, seeds=[1, 2, 2**31], fast_filters=fast,
                                     device="cpu")
         assert float(np.abs(out - ref).max()) <= 1e-4
+
+
+def injected_inputs(setup, batch, seed, degenerate=()):
+    """Seeded NumPy draws per entry in the injected bank's layout, on the card;
+    entries in ``degenerate`` get ±1e-4 alternating noise (std(smoothed) ≤ 1e-6)."""
+    shape = setup.ir_shape
+    rng = np.random.default_rng(seed)
+    hi = max(2, shape.actual_max_early_delay)
+    delays = rng.integers(1, hi, size=(batch, ir_synth.MAX_REFLECTIONS))
+    strengths = rng.uniform(0.3, 0.8, size=(batch, ir_synth.MAX_REFLECTIONS))
+    noise = rng.uniform(-1, 1, size=(batch, max(1, shape.late_length)))
+    for b in degenerate:
+        noise[b] = np.where(np.arange(noise.shape[1]) % 2 == 0, 1e-4, -1e-4)
+    return [torch.from_numpy(a).cuda() for a in bank.pack_draws(shape, delays, strengths, noise)]
+
+
+@pytest.mark.parametrize("name, params, rate, batch, degenerate", [
+    ("bench", RenderParams(), 48000, 48, ()),
+    ("cathedral", RenderParams(hall_type="Cathedral", room_size=600.0), 48000, 4, ()),
+    ("degenerate", RenderParams(), 48000, 3, (1,)),
+    ("plate", RenderParams(hall_type="Plate", room_size=10.0), 8000, 2, ()),
+])
+def test_injected_kernel_matches_plain(cuda, name, params, rate, batch, degenerate):
+    setup = pipeline.build_internal_setup(params, rate, 100)
+    shape = setup.ir_shape
+    packed = injected_inputs(setup, batch, 3, degenerate)
+    scal = setup.ir_scalars.table(batch, cuda)
+    before = bank.injected_launch_count
+    raw_k = bank._rir_bank_cuda(*packed, scal, shape)
+    raw_p = bank._rir_bank_plain(*packed, scal, shape)
+    torch.cuda.synchronize()
+    assert bank.injected_launch_count == before + 1
+    assert torch.equal(raw_k[2][..., 6], raw_p[2][..., 6])  # valid counts are exact
+    assert torch.equal(raw_k[2][:, 0, 7], raw_p[2][:, 0, 7])  # same fallback decisions
+    assert raw_k[2][:, 0, 7].nonzero().flatten().tolist() == list(degenerate)
+    for k, p in zip(bank._finalize_bank(*raw_k, shape), bank._finalize_bank(*raw_p, shape)):
+        assert (k - p).abs().max().item() <= BANK_TOL
+
+
+def test_injected_kernel_split_point_one(cuda):
+    """split_point 1, length 4096: the tail starts at sample 1 and its
+    smoothing halo reaches past both tile edges."""
+    from audio_raytracing_studio_tpu.params import derive_ir_geometry
+
+    g = derive_ir_geometry(16000, 4096 / 16000, 25, 0.06, "Holz", 0.5, 1.0 / 16000, 0.5)
+    shape, sc = ir_synth.IRShape.from_geometry(g), ir_synth.IRScalars.from_geometry(g)
+    assert shape.length == 4096 and shape.split_point == 1
+    rng = np.random.default_rng(5)
+    noise = rng.uniform(-1, 1, size=(2, shape.late_length))
+    packed = [torch.from_numpy(a).cuda() for a in bank.pack_draws(
+        shape, np.ones((2, 25), np.int32), np.full((2, 25), 0.5), noise)]
+    scal = sc.table(2, cuda)
+    fin_k = bank._finalize_bank(*bank._rir_bank_cuda(*packed, scal, shape), shape)
+    fin_p = bank._finalize_bank(*bank._rir_bank_plain(*packed, scal, shape), shape)
+    for k, p in zip(fin_k, fin_p):
+        assert (k - p).abs().max().item() <= BANK_TOL
+
+
+def test_render_draws_on_card_matches_cpu(cuda):
+    rate = 16000
+    t = np.arange(rate) / rate
+    x = (0.4 * np.sin(2 * np.pi * 330 * t)).astype(np.float32)
+    p = RenderParams(target_layout="5.1 (Standard)", hall_type="Cathedral", room_size=300.0)
+    g = pipeline._internal_static(p, rate, 1, False)[0]
+    d = IRDraws.sample(np.random.default_rng(9), g)
+    before = bank.injected_launch_count
+    out, metrics = pipeline.render(x, rate, p, draws=d, return_metrics=True, device=cuda)
+    assert bank.injected_launch_count == before + 1
+    ref, ref_metrics = pipeline.render(x, rate, p, draws=d, return_metrics=True, device="cpu")
+    assert float(np.abs(out - ref).max()) <= 1e-4
+    for key in ref_metrics:
+        assert abs(metrics[key] - ref_metrics[key]) <= 0.01
+
+
+def test_render_batch_metered_padded_on_card_matches_cpu(cuda):
+    rate = 16000
+    t = np.arange(rate // 2) / rate
+    clips = np.stack([(0.4 * np.sin(2 * np.pi * (220 + 40 * i) * t)).astype(np.float32)
+                      for i in range(3)])
+    lengths = [clips.shape[1], clips.shape[1] - 777, clips.shape[1] - 1234]
+    for b, tl in enumerate(lengths):
+        clips[b, tl:] = 0.0
+    eq = RenderParams(target_layout="Stereo", bass_gain=1.6, treble_gain=0.7)
+    params = [eq, eq, RenderParams(target_layout="Stereo")]
+    kw = dict(seeds=[1, 2, 3], with_metrics=True, clip_lengths=lengths, pcm16_output=True)
+    q, metrics = sharding.render_batch(clips, rate, params, device=cuda, **kw)
+    q_ref, ref_metrics = sharding.render_batch(clips, rate, params, device="cpu", **kw)
+    assert q.dtype == np.int16
+    assert int(np.abs(q.astype(np.int32) - q_ref.astype(np.int32)).max()) <= 1
+    for m, r in zip(metrics, ref_metrics):
+        for key in r:
+            assert abs(m[key] - r[key]) <= 0.01

@@ -1,5 +1,5 @@
 """The port's IR synthesis (ops/ir_synth.py) and RIR bank (ops/ir_synth_cuda.py)
-against the JAX package, on the CPU.
+against the JAX package, on the CPU — hash draws and injected draws.
 
 Tolerances:
 - counter-hash draws: bit-equal (integer arithmetic, exact bit-cast);
@@ -16,6 +16,7 @@ import torch
 
 from audio_raytracing_studio_tpu.ops import ir_synth as jir
 from audio_raytracing_studio_tpu.ops.ir_synth_pallas import fused_rir_bank as jax_bank
+from audio_raytracing_studio_tpu.ops.ir_synth_pallas import pack_draws as jax_pack_draws
 from audio_raytracing_studio_tpu.params import (
     RenderParams,
     adjust_parameters_for_3d,
@@ -52,6 +53,8 @@ GEOMETRIES = {
     # split_point 1, length an exact tile multiple (tile-edge smoothing)
     "split1": lambda: derive_ir_geometry(16000, 4096 / 16000, 25, 0.06, "Holz", 0.5,
                                          1.0 / 16000, 0.5),
+    # the bench shape: 48 kHz Room, 72,000 samples, 18 tiles
+    "room48k": lambda: geometry(RenderParams(), 48000),
 }
 
 
@@ -123,6 +126,145 @@ def test_bank_matches_synthesize_on_hash_draws(name):
         e, l = tir.synthesize(t_shape, *tir.hash_draws(seed, t_shape), t_sc)
         np.testing.assert_allclose(te[i].numpy(), e.numpy(), rtol=0, atol=IR_TOL)
         np.testing.assert_allclose(tl[i].numpy(), l.numpy(), rtol=0, atol=IR_TOL)
+
+
+def make_draws(rng, shape, batch):
+    """Per-entry explicit draws, as tests/test_pallas_rir.py makes them."""
+    hi = max(2, shape.actual_max_early_delay)
+    delays = rng.integers(1, hi, size=(batch, tir.MAX_REFLECTIONS)).astype(np.int32)
+    strengths = rng.uniform(0.3, 0.8, size=(batch, tir.MAX_REFLECTIONS)).astype(np.float32)
+    noise = rng.uniform(-1, 1, size=(batch, max(1, shape.late_length))).astype(np.float32)
+    return delays, strengths, noise
+
+
+def alternating_noise(n, amplitude=1e-4):
+    """±amplitude alternating noise: the 10-tap average cancels it inside the
+    tail, so std(smoothed) ≤ 1e-6 — synthesize's raw-noise fallback."""
+    return np.where(np.arange(n) % 2 == 0, amplitude, -amplitude).astype(np.float32)
+
+
+# (geometry, batch, degenerate entry 0, also against JAX's interpreted bank)
+INJECTED_CASES = {
+    "room16k_b2": ("room16k", 2, False, True),
+    "split1": ("split1", 1, False, True),
+    "cathedral16k_multitile": ("cathedral16k", 2, False, False),
+    "room48k_degenerate": ("room48k", 2, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INJECTED_CASES))
+def test_injected_plain_bank_matches_jax(rng, case):
+    """``_rir_bank_plain`` (through ``fused_rir_bank(..., injected_draws=...)``
+    on CPU tensors) against JAX ``synthesize`` per entry and against JAX's
+    injected Pallas bank in interpret mode, identical draws (≤ 2e-5;
+    measured ≤ 1.2e-7)."""
+    name, batch, degenerate, vs_interpret = INJECTED_CASES[case]
+    t_shape, t_sc, j_shape, j_sc = shapes(name)
+    delays, strengths, noise = make_draws(rng, t_shape, batch)
+    if degenerate:
+        noise[0] = alternating_noise(noise.shape[1])
+    before = bank.injected_launch_count
+    te, tl = bank.fused_rir_bank(torch.zeros(batch, dtype=torch.int32), t_shape, t_sc,
+                                 injected_draws=bank.pack_draws(t_shape, delays, strengths,
+                                                                noise))
+    assert bank.injected_launch_count == before  # the plain path never counts
+    assert te.shape == tl.shape == (batch, t_shape.length)
+    for b in range(batch):
+        je, jl = jir.synthesize(j_shape, jnp.asarray(delays[b]), jnp.asarray(strengths[b]),
+                                jnp.asarray(noise[b]), j_sc)
+        np.testing.assert_allclose(te[b].numpy(), np.asarray(je), rtol=0, atol=IR_TOL)
+        np.testing.assert_allclose(tl[b].numpy(), np.asarray(jl), rtol=0, atol=IR_TOL)
+    if vs_interpret:
+        je, jl = map(np.asarray, jax_bank(
+            np.zeros(batch, np.int32), j_shape, j_sc, interpret=True,
+            injected_draws=jax_pack_draws(j_shape, delays, strengths, noise)))
+        np.testing.assert_allclose(te.numpy(), je, rtol=0, atol=IR_TOL)
+        np.testing.assert_allclose(tl.numpy(), jl, rtol=0, atol=IR_TOL)
+
+
+def test_injected_degenerate_smoothing_takes_raw_noise(rng):
+    """The degenerate entry keeps synthesize's raw alternating tail (peak 0.7
+    over the whole tail), flagged in slot 7 of tile 0; the other entry keeps
+    its smoothed tail.  Keeping the smoothed tail would leave only the two
+    edge samples of the tail standing."""
+    t_shape, t_sc, _, _ = shapes("room48k")
+    delays, strengths, noise = make_draws(rng, t_shape, 2)
+    noise[0] = alternating_noise(noise.shape[1])
+    packed = [torch.from_numpy(a) for a in bank.pack_draws(t_shape, delays, strengths, noise)]
+    _, late_raw, stats = bank._rir_bank_plain(*packed, t_sc.table(2, "cpu"), t_shape)
+    assert stats[:, 0, 7].tolist() == [1.0, 0.0]
+    assert not stats[:, 1:, 7].any()
+    _, late = bank._finalize_bank(late_raw, late_raw, stats, t_shape)
+    tail = late[0, t_shape.split_point:]
+    assert float(tail.abs().max()) == pytest.approx(0.7, abs=1e-6)
+    head = tail[:2000]  # the decay underflows float32 further out
+    assert bool((head != 0).all())
+    assert bool((torch.sign(head[:-1]) != torch.sign(head[1:])).all())  # still alternating
+
+
+def test_injected_bank_structure_and_norms(rng):
+    t_shape, t_sc, _, _ = shapes("cathedral16k")
+    draws = bank.pack_draws(t_shape, *make_draws(rng, t_shape, 3))
+    e, l = bank.fused_rir_bank(torch.zeros(3, dtype=torch.int32), t_shape, t_sc,
+                               injected_draws=draws)
+    np.testing.assert_allclose(e.abs().amax(1).numpy(), 0.9, atol=1e-4)
+    np.testing.assert_allclose(l.abs().amax(1).numpy(), 0.7, atol=1e-4)
+    assert not e[:, t_shape.split_point:].any() and not e[:, 0].any()
+    assert not l[:, : t_shape.split_point].any()
+    head = l[:, t_shape.split_point: t_shape.split_point + 100].abs().amax(1)
+    assert bool((l[:, -1600:].abs().amax(1) < 0.1 * head).all())  # the tail decays
+
+
+def test_injected_plain_stats_match_hash_plain_on_hash_draws():
+    """Fed the hash stream's own draws, the injected plain bank reproduces the
+    hash plain bank's raw IRs and stats exactly (one shared body)."""
+    t_shape, t_sc, _, _ = shapes("room16k")
+    seeds = [3, 2**31]
+    draws = [tir.hash_draws(s, t_shape) for s in seeds]
+    packed = [torch.stack([d[i] for d in draws]) for i in range(3)]
+    scal = t_sc.table(2, "cpu")
+    got = bank._rir_bank_plain(*packed, scal, t_shape)
+    want = bank._rir_block_plain(torch.from_numpy(tir.seeds_to_int32(seeds)), scal, t_shape)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+class TestPackDraws:
+    def test_layout_pads_and_truncates(self, rng):
+        t_shape, _, _, _ = shapes("room16k")
+        d = rng.integers(1, 50, size=(2, 35)).astype(np.int64)
+        s = rng.uniform(0.3, 0.8, size=(2, 35))
+        n = rng.uniform(-1, 1, size=(2, t_shape.late_length + 17))
+        pd, ps, pn = bank.pack_draws(t_shape, d, s, n)
+        assert pd.dtype == np.int32 and pd.shape == (2, tir.MAX_REFLECTIONS)
+        assert ps.dtype == np.float32 and pn.shape == (2, t_shape.late_length)
+        np.testing.assert_array_equal(pd[:, :35], d)
+        assert not pd[:, 35:].any() and not ps[:, 35:].any()
+        np.testing.assert_array_equal(pn, n[:, : t_shape.late_length].astype(np.float32))
+        short = bank.pack_draws(t_shape, d, s, n[:, :100])[2]
+        assert not short[:, 100:].any()
+
+    def test_over_budget_rejected(self):
+        t_shape, _, _, _ = shapes("room16k")
+        with pytest.raises(ValueError, match="MAX_REFLECTIONS"):
+            bank.pack_draws(t_shape, np.ones((1, 81), np.int32), np.ones((1, 81)),
+                            np.zeros((1, 10)))
+
+    def test_bank_draws_from_irdraws(self, rng):
+        """models.convert.bank_draws: a list of the JAX package's IRDraws →
+        the injected bank's inputs, identical to pack_draws."""
+        from audio_raytracing_studio_tpu.params import IRDraws
+        from audio_raytracing_studio_tpu_torch.models import convert
+
+        g = GEOMETRIES["room16k"]()
+        t_shape = tir.IRShape.from_geometry(g)
+        draws = [IRDraws.sample(np.random.default_rng(s), g) for s in (1, 2)]
+        got = convert.bank_draws(draws, t_shape)
+        want = bank.pack_draws(t_shape, np.stack([d.delays for d in draws]),
+                               np.stack([d.strengths for d in draws]),
+                               np.stack([d.noise for d in draws]))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_bank_norms_and_structure():
@@ -206,6 +348,41 @@ class TestNoSilentFallback:
         t_shape, t_sc, _, _ = shapes("room16k")
         with pytest.raises(ValueError, match="CUDA device"):
             bank._rir_block_cuda(torch.zeros(2, dtype=torch.int32), t_sc.table(2, "cpu"), t_shape)
+
+    def test_injected_non_cpu_tensor_never_takes_plain_path(self, monkeypatch, rng):
+        t_shape, t_sc, _, _ = shapes("room16k")
+
+        def forbidden(*args, **kwargs):
+            raise AssertionError("plain path taken for a non-CPU tensor")
+
+        monkeypatch.setattr(bank, "_rir_bank_plain", forbidden)
+        draws = bank.pack_draws(t_shape, *make_draws(rng, t_shape, 2))
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            bank.fused_rir_bank(torch.zeros(2, dtype=torch.int32, device="meta"), t_shape,
+                                t_sc, injected_draws=draws)
+
+    def test_injected_kernel_wrapper_rejects_cpu_tensors(self, rng):
+        t_shape, t_sc, _, _ = shapes("room16k")
+        packed = [torch.from_numpy(a) for a in bank.pack_draws(t_shape, *make_draws(rng, t_shape, 2))]
+        before = bank.injected_launch_count
+        with pytest.raises(ValueError, match="CUDA device"):
+            bank._rir_bank_cuda(*packed, t_sc.table(2, "cpu"), t_shape)
+        assert bank.injected_launch_count == before
+
+    def test_render_draws_on_cpu_uses_plain_synthesize(self, monkeypatch, tone48k):
+        """On the CPU, render(draws=...) keeps the plain synthesize, as the JAX
+        package does; the injected bank is the GPU's producer."""
+        from audio_raytracing_studio_tpu.params import IRDraws
+        from audio_raytracing_studio_tpu_torch.models import pipeline
+
+        def forbidden(*args, **kwargs):
+            raise AssertionError("the bank ran for render(draws=...) on the CPU")
+
+        monkeypatch.setattr(pipeline, "fused_rir_bank", forbidden)
+        x, rate = tone48k
+        p = RenderParams(target_layout="Stereo")
+        d = IRDraws.sample(np.random.default_rng(1), geometry(p, rate))
+        assert pipeline.render(x[:4800], rate, p, draws=d, device="cpu").shape[1] == 2
 
     def test_cuda_request_without_card_raises(self):
         if torch.cuda.is_available():

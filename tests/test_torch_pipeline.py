@@ -10,6 +10,8 @@ Tolerances:
   of tests/test_parity.py — the product's parity contract;
 - filters and spatial units vs JAX: ≤ 1e-5 (one transform pair, no
   convolution gain);
+- metrics vs JAX and vs the oracle meter: ≤ 0.01 LU (PARITY.md item 2),
+  sample peak and RMS ≤ 1e-3 dB;
 - PCM16 quantization: bit-equal.
 """
 
@@ -19,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+from audio_raytracing_studio_tpu.metering import loudness as jloud
 from audio_raytracing_studio_tpu.models import pipeline as jpipe
 from audio_raytracing_studio_tpu.ops import filters as jfilters
 from audio_raytracing_studio_tpu.ops import spatial as jspatial
 from audio_raytracing_studio_tpu.oracle import dsp
+from audio_raytracing_studio_tpu.oracle.loudness import calculate_audio_metrics
 from audio_raytracing_studio_tpu.params import IRDraws, RenderParams
 from audio_raytracing_studio_tpu.parallel import sharding as jsharding
 from audio_raytracing_studio_tpu_torch.models import convert
@@ -36,6 +40,8 @@ torch.set_num_threads(1)
 JAX_TOL = 1e-4
 ORACLE_TOL = 1e-3
 UNIT_TOL = 1e-5
+LU_TOL = 0.01
+DB_TOL = 1e-3
 
 
 def tone(rate: int, seconds: float, seed: int = 3) -> np.ndarray:
@@ -90,10 +96,7 @@ def test_render_matches_jax_same_seed(case):
 
 BASELINE = {
     "config1_room_stereo": RenderParams(target_layout="Stereo"),
-    # config 2 is external-IR (not ported yet, see test below); its mix,
-    # dry-kill and EQ settings run here on the internal hall
-    "config2_mix_kill_eq": RenderParams(dry_wet=0.7, dry_wet_kill_start=0.4, bass_gain=1.6,
-                                        treble_gain=0.6, target_layout="Stereo"),
+    # config 2 (external IR) is test_config2_external_ir_matches_oracle below
     "config3_cathedral_air": RenderParams(hall_type="Cathedral", room_size=600.0,
                                           air_absorption=0.5, diffusion=0.8,
                                           target_layout="Stereo"),
@@ -136,13 +139,110 @@ def test_render_draws_matches_jax_draws(tone48k):
                    jpipe.render(x, rate, p, draws=d)) <= JAX_TOL
 
 
-def test_external_ir_not_ported():
+def assert_metrics_close(got: dict, want: dict, lu=LU_TOL, db=DB_TOL):
+    assert set(got) >= {"lufs", "true_peak_dbfs", "rms_dbfs"}
+    for key, tol in (("lufs", lu), ("true_peak_dbfs", db), ("rms_dbfs", db)):
+        g, w = float(got[key]), float(want[key])
+        assert (g == w) if np.isinf(w) else abs(g - w) <= tol, (key, g, w)
+
+
+# --- external-IR mode: BASELINE config 2 -------------------------------------
+
+CONFIG2 = RenderParams(use_external_ir=True, dry_wet=0.7, dry_wet_kill_start=0.4,
+                       bass_gain=1.6, treble_gain=0.6, target_layout="Stereo")
+
+
+def external_ir(rng, n_ir=4800):
+    """tests/test_parity.py's config-2 IR: decaying noise, a unit first tap."""
+    env = np.exp(-np.arange(n_ir) / 800.0)[:, None]
+    ir = (rng.standard_normal((n_ir, 2)) * env * 0.3).astype(np.float32)
+    ir[0] = 1.0
+    return ir
+
+
+def assert_oracle_parity(got, ref):
+    assert max_err(got, ref) <= ORACLE_TOL
+    q_got, q_ref = dsp.quantize_pcm16(got), dsp.quantize_pcm16(ref)
+    lsb = int(np.max(np.abs(q_got.astype(np.int32) - q_ref.astype(np.int32))))
+    assert lsb <= max(1, int(np.ceil(ORACLE_TOL * 32768)))
+
+
+def test_config2_external_ir_matches_oracle(rng, tone48k):
+    x, rate = tone48k
+    ir = external_ir(rng)
+    got, metrics = tpipe.render(x, rate, CONFIG2, external_ir=ir, return_metrics=True,
+                                device="cpu")
+    ref = dsp.render(x, rate, CONFIG2, external_ir=ir)
+    assert got.shape == ref.shape == (x.shape[0] + ir.shape[0] - 1, 2)
+    assert_oracle_parity(got, ref)
+    assert_metrics_close(metrics, calculate_audio_metrics(ref, rate))
+    want = jpipe.render(x, rate, CONFIG2, external_ir=ir)
+    assert max_err(got, want) <= JAX_TOL
+
+
+def test_external_ir_resampled_44k1(rng, tone48k):
+    """A 44.1 kHz IR is Fourier-resampled to 48 kHz; the oracle gets the
+    scipy-resampled IR (tests/test_parity.py::test_external_ir_resampled)."""
+    from scipy import signal
+
+    x, rate = tone48k
+    ir44 = (rng.standard_normal((2205, 2)) * 0.2).astype(np.float32)
+    ir48 = tpipe.prepare_external_ir(ir44, 44100, rate).numpy()
+    assert ir48.shape == (2400, 2)
+    assert max_err(ir48, signal.resample(ir44, 2400, axis=0)) <= 5e-6
     p = RenderParams(use_external_ir=True, target_layout="Stereo")
+    got = tpipe.render(x, rate, p, external_ir=ir44, external_ir_rate=44100, device="cpu")
+    assert_oracle_parity(got, dsp.render(x, rate, p, external_ir=ir48))
+    want = jpipe.render(x, rate, p, external_ir=ir44, external_ir_rate=44100)
+    assert max_err(got, want) <= JAX_TOL
+
+
+@pytest.mark.parametrize("ir, match", [
+    (np.zeros((100, 1), np.float32), "stereo"),
+    (np.zeros((100, 3), np.float32), "stereo"),
+    (np.zeros(100, np.float32), "2-D"),
+    (np.zeros((0, 2), np.float32), "empty"),
+])
+def test_external_ir_rejections(ir, match):
     x = tone(8000, 0.2)
-    with pytest.raises(NotImplementedError, match="external"):
+    p = RenderParams(use_external_ir=True)
+    with pytest.raises(ValueError, match=match):
+        tpipe.render(x, 8000, p, external_ir=ir, device="cpu")
+    # a non-stereo IR is rejected before any resample
+    with pytest.raises(ValueError, match=match):
+        tpipe.prepare_external_ir(ir, 44100, 8000)
+    with pytest.raises(ValueError, match="requires external_ir"):
         tpipe.render(x, 8000, p, device="cpu")
-    with pytest.raises(NotImplementedError, match="external"):
-        tsharding.render_batch(x[None], 8000, p, device="cpu")
+
+
+# --- metrics: render(return_metrics=True) -----------------------------------
+
+METRIC_CASES = {
+    "stereo_seed": (RenderParams(target_layout="Stereo"), 48000),
+    "51_seed": (RenderParams(target_layout="5.1 (Standard)", x_pos=0.2, y_pos=0.8), 16000),
+    "71_eq": (RenderParams(target_layout="7.1 (Surround)", bass_gain=1.6, treble_gain=0.7),
+              16000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(METRIC_CASES))
+def test_render_metrics_match_jax_and_oracle(case):
+    p, rate = METRIC_CASES[case]
+    x = tone(rate, 1.2)
+    got, metrics = tpipe.render(x, rate, p, seed=5, return_metrics=True, device="cpu")
+    want, want_metrics = jpipe.render(x, rate, p, seed=5, return_metrics=True)
+    assert max_err(got, want) <= JAX_TOL
+    assert_metrics_close(metrics, want_metrics)
+    assert_metrics_close(metrics, calculate_audio_metrics(got, rate))
+    assert np.array_equal(tpipe.render(x, rate, p, seed=5, device="cpu"), got)
+
+
+def test_render_metrics_silent_input():
+    x = np.zeros(8000, np.float32)
+    out, metrics = tpipe.render(x, 8000, RenderParams(target_layout="Stereo"), seed=1,
+                                return_metrics=True, device="cpu")
+    assert not out.any()
+    assert metrics == {"lufs": -np.inf, "true_peak_dbfs": -np.inf, "rms_dbfs": -np.inf}
 
 
 def test_injected_draws_over_budget_rejected(rng):
@@ -241,20 +341,9 @@ class TestRenderBatchContract:
             solo = tpipe.render(self.clips()[i], self.rate, p, seed=8 + i, device="cpu")
             assert max_err(out[i], solo) <= 1e-6
 
-    def test_padded_eq_clip_not_ported(self):
-        p = RenderParams(target_layout="Stereo", bass_gain=1.5)
-        n = self.clips().shape[1]
-        with pytest.raises(NotImplementedError, match="length-dynamic EQ"):
-            tsharding.render_batch(self.clips(), self.rate, p, clip_lengths=[n, n - 10],
-                                   device="cpu")
-        flat = RenderParams(target_layout="Stereo")
-        out = tsharding.render_batch(self.clips(), self.rate, flat, clip_lengths=[n, n - 10],
-                                     device="cpu")
-        assert out.shape[0] == 2
-
     @pytest.mark.parametrize("kwargs, exc", [
         ({"device_mesh": object()}, NotImplementedError),
-        ({"with_metrics": True}, NotImplementedError),
+        ({"async_results": True}, NotImplementedError),
         ({"ir_backend": "pallas"}, ValueError),
         ({"seeds": [1, 2, 3]}, ValueError),
         ({"clip_lengths": [1]}, ValueError),
@@ -263,6 +352,174 @@ class TestRenderBatchContract:
         with pytest.raises(exc):
             tsharding.render_batch(self.clips(), self.rate, RenderParams(), device="cpu",
                                    **kwargs)
+
+
+# --- render_batch: metrics, padded EQ, external IR ---------------------------
+
+def padded_clips(rate, seconds, cuts):
+    """Clips zero-padded to one bucket: clip b's true length is N − cuts[b]."""
+    clips = np.stack([tone(rate, seconds, seed=i) for i in range(len(cuts))])
+    lengths = [clips.shape[1] - c for c in cuts]
+    for b, tl in enumerate(lengths):
+        clips[b, tl:] = 0.0  # bucket padding is zeros by contract
+    return clips, lengths
+
+
+PADDED_PARAMS = [
+    RenderParams(target_layout="Stereo", room_size=50.0, bass_gain=2.0, treble_gain=0.4),
+    RenderParams(target_layout="Stereo", room_size=50.0, bass_gain=2.0, treble_gain=0.4),
+    RenderParams(target_layout="Stereo", room_size=50.0),
+]
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "exact"])
+def test_render_batch_metrics_match_jax(fast):
+    """with_metrics + clip_lengths (masked meter) + padded EQ-on clips + PCM16,
+    against the JAX package's render_batch on the same seeds."""
+    rate = 16000
+    clips, lengths = padded_clips(rate, 0.8, [0, 777, 1234])
+    kw = dict(seeds=[0, 1, 2], clip_lengths=lengths, with_metrics=True, fast_filters=fast)
+    got, metrics = tsharding.render_batch(clips, rate, PADDED_PARAMS, device="cpu", **kw)
+    want, want_metrics = jsharding.render_batch(clips, rate, PADDED_PARAMS, **kw)
+    assert max_err(got, want) <= JAX_TOL
+    assert len(metrics) == 3
+    for m, w in zip(metrics, want_metrics):
+        assert_metrics_close(m, w)
+    q, q_metrics = tsharding.render_batch(clips, rate, PADDED_PARAMS, device="cpu",
+                                          pcm16_output=True, real_batch=2, **kw)
+    assert q.dtype == np.int16 and q.shape == (2,) + got.shape[1:]
+    np.testing.assert_array_equal(q, dsp.quantize_pcm16(got[:2]))
+    assert q_metrics == metrics[:2]
+
+
+def test_padded_eq_clip_matches_unpadded_solo():
+    """Analogue of tests/test_parallel.py::test_padded_eq_clip_matches_unpadded_solo:
+    every clip of a padded batch — padded or not, EQ on or off — matches its
+    unpadded solo render, is zero past its true span, and meters the same."""
+    rate = 16000
+    clips, lengths = padded_clips(rate, 0.5, [0, 777, 1234])
+    out, metrics = tsharding.render_batch(clips, rate, PADDED_PARAMS, seeds=[0, 1, 2],
+                                          clip_lengths=lengths, with_metrics=True,
+                                          device="cpu")
+    for b, (tl, p) in enumerate(zip(lengths, PADDED_PARAMS)):
+        solo, solo_metrics = tpipe.render(clips[b, :tl], rate, p, seed=b,
+                                          return_metrics=True, device="cpu")
+        assert max_err(out[b, : solo.shape[0]], solo) <= 2e-5, f"clip {b}"
+        assert not out[b, solo.shape[0]:].any()
+        assert_metrics_close(metrics[b], solo_metrics)
+
+
+def test_padded_eq_matches_oracle():
+    """The true-length EQ of a padded clip against the float64 oracle
+    (tests/test_parity.py::TestDynamicEQOracleParity, one length)."""
+    from audio_raytracing_studio_tpu.ops import ir_synth as jir
+
+    rate, n0, bucket = 8000, 5123, 8000
+    p = RenderParams(target_layout="Stereo", room_size=60.0, bass_gain=1.7, treble_gain=0.5)
+    x = tone(rate, n0 / rate)
+    padded = np.zeros((1, bucket), np.float32)
+    padded[0, :n0] = x
+    out = tsharding.render_batch(padded, rate, [p], seeds=[11], clip_lengths=[n0],
+                                 device="cpu")[0]
+    g = tpipe._internal_static(p, rate, 1, False)[0]
+    d, st, nz = map(np.asarray, jir.hash_draws(11, jir.IRShape.from_geometry(g)))
+    draws = IRDraws(delays=d[: g.reflection_count], strengths=st[: g.reflection_count],
+                    noise=nz[: g.late_length])
+    ref = dsp.render(x, rate, p, draws=draws)
+    assert_oracle_parity(out[: ref.shape[0]], ref)
+    assert not out[ref.shape[0]:].any()
+
+
+def test_render_batch_metrics_unpadded_match_solo():
+    rate = 8000
+    clips = np.stack([tone(rate, 1.0, seed=i) * (0.5 + i) for i in range(3)])
+    p = RenderParams(target_layout="5.1 (Standard)")
+    out, metrics = tsharding.render_batch(clips, rate, p, seeds=[3, 4, 5], with_metrics=True,
+                                          device="cpu")
+    for i in range(3):
+        solo, m = tpipe.render(clips[i], rate, p, seed=3 + i, return_metrics=True,
+                               device="cpu")
+        assert max_err(out[i], solo) <= 1e-6
+        assert_metrics_close(metrics[i], m, lu=1e-4, db=1e-4)
+        assert_metrics_close(metrics[i], calculate_audio_metrics(solo, rate))
+
+
+class TestBatchedExternal:
+    rate = 16000
+
+    def clips(self, b):
+        t = np.arange(self.rate // 2) / self.rate
+        return np.stack([(0.4 * np.sin(2 * np.pi * (220 + 60 * i) * t)).astype(np.float32)
+                         for i in range(b)])
+
+    def test_external_batch_matches_single_and_jax(self, rng):
+        ir = (rng.standard_normal((800, 2)) * 0.2).astype(np.float32)
+        params = [RenderParams(use_external_ir=True, target_layout="Stereo", dry_wet=dw)
+                  for dw in (0.3, 0.6, 0.9)]
+        clips = self.clips(3)
+        out, metrics = tsharding.render_batch(clips, self.rate, params, external_ir=ir,
+                                              with_metrics=True, device="cpu")
+        assert out.shape == (3, clips.shape[1] + 800 - 1, 2) and len(metrics) == 3
+        want, want_metrics = jsharding.render_batch(clips, self.rate, params, external_ir=ir,
+                                                    with_metrics=True)
+        assert max_err(out, want) <= JAX_TOL
+        for i, p in enumerate(params):
+            single = tpipe.render(clips[i], self.rate, p, external_ir=ir, device="cpu")
+            assert max_err(out[i], single) <= 2e-5
+            assert_metrics_close(metrics[i], want_metrics[i])
+
+    def test_external_pcm16_and_masked_metrics(self, rng):
+        """Analogue of tests/test_parallel.py::test_external_pcm16_and_masked_metrics."""
+        clips = self.clips(2)
+        true_lens = [clips.shape[1], int(0.3 * self.rate)]
+        clips[1, true_lens[1]:] = 0.0
+        ir = (rng.standard_normal((800, 2)) * 0.2).astype(np.float32)
+        p = RenderParams(use_external_ir=True, target_layout="Stereo", dry_wet=0.6)
+        f = tsharding.render_batch(clips, self.rate, p, external_ir=ir, device="cpu")
+        q, metrics = tsharding.render_batch(clips, self.rate, p, external_ir=ir,
+                                            with_metrics=True, pcm16_output=True,
+                                            clip_lengths=true_lens, device="cpu")
+        assert q.dtype == np.int16
+        np.testing.assert_array_equal(q, dsp.quantize_pcm16(f))
+        real_len = true_lens[1] + ir.shape[0] - 1
+        ref = jloud.audio_metrics(jnp.asarray(f[1, :real_len].T), self.rate)
+        assert_metrics_close(metrics[1], {k: float(v) for k, v in ref.items()})
+        _, want = jsharding.render_batch(clips, self.rate, p, external_ir=ir,
+                                         with_metrics=True, pcm16_output=True,
+                                         clip_lengths=true_lens)
+        for m, w in zip(metrics, want):
+            assert_metrics_close(m, w)
+
+    def test_external_padded_eq_and_resampled_ir(self, rng):
+        """Padded EQ-on clips on the external path, with a 44.1 kHz IR."""
+        clips = self.clips(2)
+        true_lens = [clips.shape[1], clips.shape[1] - 999]
+        clips[1, true_lens[1]:] = 0.0
+        ir = (rng.standard_normal((441, 2)) * 0.2).astype(np.float32)
+        p = RenderParams(use_external_ir=True, target_layout="5.1 (Standard)",
+                         bass_gain=1.8, treble_gain=0.5)
+        out = tsharding.render_batch(clips, self.rate, p, external_ir=ir,
+                                     external_ir_rate=44100, clip_lengths=true_lens,
+                                     device="cpu")
+        want = jsharding.render_batch(clips, self.rate, p, external_ir=ir,
+                                      external_ir_rate=44100, clip_lengths=true_lens)
+        assert max_err(out, want) <= JAX_TOL
+        solo = tpipe.render(clips[1, : true_lens[1]], self.rate, p, external_ir=ir,
+                            external_ir_rate=44100, device="cpu")
+        assert max_err(out[1, : solo.shape[0]], solo) <= 2e-5
+
+    @pytest.mark.parametrize("params, ir, match", [
+        ([RenderParams(use_external_ir=True), RenderParams()], np.zeros((10, 2)), "mixed"),
+        ([RenderParams(use_external_ir=True)] * 2, None, "requires external_ir"),
+        ([RenderParams(use_external_ir=True, target_layout="Stereo"),
+          RenderParams(use_external_ir=True, target_layout="5.1 (Standard)")],
+         np.zeros((10, 2)), "target_layout"),
+        ([RenderParams(use_external_ir=True)] * 2, np.zeros((10, 1)), "stereo"),
+    ], ids=["mixed_modes", "missing_ir", "mixed_layouts", "mono_ir"])
+    def test_external_batch_rejections(self, params, ir, match):
+        with pytest.raises(ValueError, match=match):
+            tsharding.render_batch(np.zeros((2, 1000), np.float32), self.rate, params,
+                                   external_ir=ir, device="cpu")
 
 
 # --- host setup carried across --------------------------------------------
