@@ -77,13 +77,6 @@ def bank_draws(
     """One ``IRDraws`` per bank entry → the injected bank's (delays (B, 80),
     strengths (B, 80), noise (B, max(1, late_length))) tensors on ``device``
     (``ir_synth_cuda.pack_draws``; more than 80 taps raise)."""
-    r = max(_check_taps(d) for d in draws)
-    delays = np.zeros((len(draws), r), dtype=np.int32)
-    strengths = np.zeros((len(draws), r), dtype=np.float32)
-    noise = np.zeros((len(draws), max(1, shape.late_length)), dtype=np.float32)
-    for i, d in enumerate(draws):
-        delays[i, : len(d.delays)] = d.delays
-        strengths[i, : len(d.strengths)] = d.strengths
-        k = min(noise.shape[1], len(d.noise))
-        noise[i, :k] = np.asarray(d.noise[:k], dtype=np.float32)
-    return tuple(torch.from_numpy(a).to(device) for a in pack_draws(shape, delays, strengths, noise))
+    packed = pack_draws(shape, [d.delays for d in draws], [d.strengths for d in draws],
+                        [d.noise for d in draws])
+    return tuple(torch.from_numpy(a).to(device) for a in packed)

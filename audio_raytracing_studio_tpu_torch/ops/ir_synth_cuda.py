@@ -370,29 +370,31 @@ def _finalize_bank(early_raw, late_raw, stats, shape: IRShape):
 
 
 def pack_draws(
-    shape: IRShape, delays: np.ndarray, strengths: np.ndarray, noise: np.ndarray
+    shape: IRShape, delays: Sequence, strengths: Sequence, noise: Sequence
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-entry explicit draws → the injected bank's flat inputs.
 
-    delays/strengths: (B, R ≤ MAX_REFLECTIONS) → (B, MAX_REFLECTIONS) int32 /
-    float32, zero-padded; noise: (B, ≥ late_length) → (B, max(1, late_length))
-    float32 (extra columns dropped, missing ones zero).
+    Each argument holds B rows (a 2-D array, or a list of rows of differing
+    lengths).  delays/strengths: rows of ≤ MAX_REFLECTIONS taps → (B,
+    MAX_REFLECTIONS) int32 / float32, zero-padded; noise → (B, max(1,
+    late_length)) float32 (extra samples dropped, missing ones zero).
     """
-    delays = np.asarray(delays)
-    batch, r = delays.shape
-    if r > MAX_REFLECTIONS:
-        raise ValueError(
-            f"injected draws carry {r} early taps; the static budget is "
-            f"MAX_REFLECTIONS={MAX_REFLECTIONS}"
-        )
+    batch = len(delays)
+    cols = max(1, shape.late_length)
     d = np.zeros((batch, MAX_REFLECTIONS), dtype=np.int32)
     s = np.zeros((batch, MAX_REFLECTIONS), dtype=np.float32)
-    d[:, :r] = delays
-    s[:, :r] = np.asarray(strengths)
-    noise = np.asarray(noise, dtype=np.float32)
-    cols = max(1, shape.late_length)
     n = np.zeros((batch, cols), dtype=np.float32)
-    n[:, : min(cols, noise.shape[1])] = noise[:, :cols]
+    for i, (di, si, ni) in enumerate(zip(delays, strengths, noise)):
+        r = len(di)
+        if r > MAX_REFLECTIONS:
+            raise ValueError(
+                f"injected draws carry {r} early taps; the static budget is "
+                f"MAX_REFLECTIONS={MAX_REFLECTIONS}"
+            )
+        d[i, :r] = di
+        s[i, :r] = si
+        ni = np.asarray(ni, dtype=np.float32)[:cols]
+        n[i, : ni.shape[0]] = ni
     return d, s, n
 
 

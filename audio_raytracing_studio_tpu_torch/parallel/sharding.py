@@ -97,7 +97,6 @@ def render_batch(
     external_ir_rate: Optional[int] = None,
     clip_lengths: Optional[Sequence[int]] = None,
     pcm16_output: bool = False,
-    async_results: bool = False,
     real_batch: Optional[int] = None,
     device="cuda",
 ):
@@ -126,8 +125,6 @@ def render_batch(
     """
     if device_mesh is not None:
         raise NotImplementedError("multi-device rendering is not ported yet")
-    if async_results:
-        raise NotImplementedError("async_results is not ported yet")
     if ir_backend not in IR_BACKENDS:
         raise ValueError(f"ir_backend must be one of {IR_BACKENDS}, got {ir_backend!r}")
     dev = pipeline.resolve_device(device)

@@ -1,15 +1,18 @@
 """Checks that need an NVIDIA GPU and nvcc: the CUDA RIR-bank kernels (hash
-and injected draws) against their plain PyTorch versions on the card, and the
-render paths through them.
+and injected draws) against their plain PyTorch versions on the card, the
+render paths through them, and the parity path at full size (BASELINE
+configs 1-5, 60 s at 48 kHz) against the float64 oracle.
 
 Marked ``cuda``; each test skips (with a reason) where no card is present,
-as on a CPU-only machine.  This file imports no JAX, so on the GPU machine it
-runs without the suite's conftest:
+as on a CPU-only machine.  This file imports no JAX (the oracle is NumPy and
+SciPy only), so on the GPU machine it runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: 2e-5 max-abs on the finalized IRs (peaks 0.9 / 0.7) — float
-round-off of reductions summed in another order, and of expf/powf ulps.
+Tolerances: 2e-5 max-abs on the finalized IRs (peaks 0.9 / 0.7) — float
+round-off of reductions summed in another order, and of expf/powf ulps;
+against the oracle, the parity contract (PARITY.md, tests/test_parity.py):
+1e-3 max-abs, the PCM16 LSB rule, 0.01 LU, and 0.01 dB of peak and RMS.
 """
 
 import numpy as np
@@ -25,6 +28,9 @@ from audio_raytracing_studio_tpu_torch.parallel import sharding
 pytestmark = pytest.mark.cuda
 
 BANK_TOL = 2e-5
+ORACLE_TOL = 1e-3
+LU_TOL = 0.01
+DB_TOL = 0.01
 
 
 @pytest.fixture
@@ -164,3 +170,107 @@ def test_render_batch_metered_padded_on_card_matches_cpu(cuda):
     for m, r in zip(metrics, ref_metrics):
         for key in r:
             assert abs(m[key] - r[key]) <= 0.01
+
+
+# --- the parity path at full size against the float64 oracle ----------------
+
+PARITY_RATE = 48000
+PARITY_SECONDS = 60.0
+_IR_RNG = np.random.default_rng(0x0C0FFEE)
+_EXT_IR = (_IR_RNG.standard_normal((4800, 2))  # tests/test_parity.py's config-2 IR
+           * np.exp(-np.arange(4800) / 800.0)[:, None] * 0.3).astype(np.float32)
+_EXT_IR[0] = 1.0
+_IR44 = (_IR_RNG.standard_normal((2205, 2)) * 0.2).astype(np.float32)
+_CATHEDRAL = RenderParams(hall_type="Cathedral", room_size=600.0, air_absorption=0.5,
+                          diffusion=0.8, target_layout="Stereo")
+PARITY_CASES = {
+    "config1_exact": (RenderParams(target_layout="Stereo"), False, None),
+    "config1_fast": (RenderParams(target_layout="Stereo"), True, None),
+    "config2_external": (RenderParams(use_external_ir=True, dry_wet=0.7,
+                                      dry_wet_kill_start=0.4, bass_gain=1.6, treble_gain=0.6,
+                                      target_layout="Stereo"), False, (_EXT_IR, None)),
+    "config2_ir44k1": (RenderParams(use_external_ir=True, target_layout="Stereo"), False,
+                       (_IR44, 44100)),
+    "config3_exact": (_CATHEDRAL, False, None),
+    "config3_fast": (_CATHEDRAL, True, None),
+    "config4_51": (RenderParams(x_pos=0.2, y_pos=0.8, z_pos=0.3,
+                                target_layout="5.1 (Standard)"), False, None),
+    "config5_71": (RenderParams(target_layout="7.1 (Surround)", z_pos=0.7), False, None),
+    "config5_512": (RenderParams(target_layout="5.1.2 (Atmos Light)", z_pos=0.7), False, None),
+}
+
+
+def parity_clips(n_clips=1):
+    from audio_raytracing_studio_tpu_torch.tools.profile_render import bench_clips
+
+    return bench_clips(n_clips, PARITY_SECONDS)
+
+
+def assert_metrics_close(got, want):
+    for key, tol in (("lufs", LU_TOL), ("true_peak_dbfs", DB_TOL), ("rms_dbfs", DB_TOL)):
+        if float(got[key]) != float(want[key]):  # equal infinities pass
+            assert abs(float(got[key]) - float(want[key])) <= tol, (key, got, want)
+
+
+@pytest.mark.parametrize("case", sorted(PARITY_CASES))
+def test_parity_on_card_matches_oracle(cuda, case):
+    """render(draws=... | external_ir=..., return_metrics=True) on the card
+    at 60 s × 48 kHz against the oracle render and oracle meter; each render
+    through draws launches the injected kernel once."""
+    from scipy import signal
+
+    from audio_raytracing_studio_tpu.oracle import dsp
+    from audio_raytracing_studio_tpu.oracle.loudness import calculate_audio_metrics
+
+    p, fast, external = PARITY_CASES[case]
+    mono = parity_clips()[0]
+    before = bank.injected_launch_count
+    if external is None:
+        g = pipeline._internal_static(p, PARITY_RATE, 1, False)[0]
+        draws = IRDraws.sample(np.random.default_rng(123), g)
+        out, metrics = pipeline.render(mono, PARITY_RATE, p, draws=draws, fast_filters=fast,
+                                       return_metrics=True, device=cuda)
+        ref = dsp.render(mono, PARITY_RATE, p, draws=draws)
+    else:
+        ir, ir_rate = external
+        out, metrics = pipeline.render(mono, PARITY_RATE, p, external_ir=ir,
+                                       external_ir_rate=ir_rate, return_metrics=True,
+                                       device=cuda)
+        if ir_rate is not None:  # the oracle takes the IR at the render rate (scipy)
+            ir = signal.resample(ir, int(len(ir) * PARITY_RATE / ir_rate),
+                                 axis=0).astype(np.float32)
+        ref = dsp.render(mono, PARITY_RATE, p, external_ir=ir)
+    assert bank.injected_launch_count == before + (external is None)
+    assert out.shape == ref.shape
+    assert np.isfinite(out).all()
+    assert float(np.abs(out.astype(np.float64) - ref).max()) <= ORACLE_TOL
+    lsb = int(np.abs(dsp.quantize_pcm16(out).astype(np.int32)
+                     - dsp.quantize_pcm16(ref).astype(np.int32)).max())
+    assert lsb <= max(1, int(np.ceil(ORACLE_TOL * 32768)))
+    assert_metrics_close(metrics, calculate_audio_metrics(ref, PARITY_RATE))
+
+
+@pytest.mark.parametrize("eq", [False, True], ids=["eq_off_fast", "eq_on_exact"])
+def test_metered_padded_batch_matches_oracle_meter(cuda, eq):
+    """render_batch(with_metrics, clip_lengths, pcm16) at B=48 × 60 s with
+    mixed true lengths: the masked metrics of clips 0 and 47 against the
+    oracle meter on their trimmed, dequantized output."""
+    from audio_raytracing_studio_tpu.oracle.loudness import calculate_audio_metrics
+
+    batch = 48
+    clips = parity_clips(batch)
+    n_in = clips.shape[1]
+    lengths = [n_in - int(0.2 * n_in * b / (batch - 1)) for b in range(batch)]
+    for b, tl in enumerate(lengths):
+        clips[b, tl:] = 0.0
+    p = (RenderParams(target_layout="Stereo", bass_gain=1.6, treble_gain=0.7) if eq
+         else RenderParams(target_layout="Stereo"))
+    q, metrics = sharding.render_batch(clips, PARITY_RATE, p, fast_filters=not eq,
+                                       with_metrics=True, clip_lengths=lengths,
+                                       pcm16_output=True, device=cuda)
+    ir_len = q.shape[1] - n_in + 1
+    for b in (0, batch - 1):
+        vlen = lengths[b] + ir_len - 1
+        assert not q[b, vlen:].any()
+        trimmed = q[b, :vlen].astype(np.float64) / 32768.0
+        assert_metrics_close(metrics[b], calculate_audio_metrics(trimmed, PARITY_RATE))

@@ -50,9 +50,8 @@ def test_port_imports_no_jax():
 
 
 def test_chip_smoke_imports_no_jax_and_needs_cuda():
-    """chip_smoke.py imports the port and, of the JAX package, only the
-    NumPy/SciPy float64 oracle (its parity reference); without a CUDA device
-    it exits non-zero before printing any result line."""
+    """chip_smoke.py imports the port only, and without a CUDA device it
+    exits non-zero before printing any result line."""
     import ast
 
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
@@ -62,9 +61,7 @@ def test_chip_smoke_imports_no_jax_and_needs_cuda():
     assert any(m.startswith("audio_raytracing_studio_tpu_torch") for m in imported)
     for m in imported:
         top = m.split(".")[0]
-        assert top not in ("jax", "jaxlib"), m
-        if top == "audio_raytracing_studio_tpu":
-            assert m.startswith("audio_raytracing_studio_tpu.oracle"), m
+        assert top not in ("jax", "jaxlib", "audio_raytracing_studio_tpu"), m
     import torch
 
     if torch.cuda.is_available():

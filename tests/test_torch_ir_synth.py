@@ -266,6 +266,24 @@ class TestPackDraws:
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), b)
 
+    def test_ragged_rows(self, rng):
+        """Rows of differing tap counts and noise lengths pad per row."""
+        t_shape, _, _, _ = shapes("room16k")
+        cols = t_shape.late_length
+        d = [rng.integers(1, 50, size=r) for r in (3, 80)]
+        s = [rng.uniform(0.3, 0.8, size=r) for r in (3, 80)]
+        n = [rng.uniform(-1, 1, size=k) for k in (100, cols + 5)]
+        pd, ps, pn = bank.pack_draws(t_shape, d, s, n)
+        assert pd.shape == ps.shape == (2, tir.MAX_REFLECTIONS) and pn.shape == (2, cols)
+        np.testing.assert_array_equal(pd[0, :3], d[0])
+        assert not pd[0, 3:].any() and not ps[0, 3:].any()
+        np.testing.assert_array_equal(ps[1], s[1].astype(np.float32))
+        np.testing.assert_array_equal(pn[0, :100], n[0].astype(np.float32))
+        assert not pn[0, 100:].any()
+        np.testing.assert_array_equal(pn[1], n[1][:cols].astype(np.float32))
+        with pytest.raises(ValueError, match="MAX_REFLECTIONS"):
+            bank.pack_draws(t_shape, [d[0], np.ones(81)], [s[0], np.ones(81)], n)
+
 
 def test_bank_norms_and_structure():
     t_shape, t_sc, _, _ = shapes("cathedral16k")

@@ -343,7 +343,7 @@ class TestRenderBatchContract:
 
     @pytest.mark.parametrize("kwargs, exc", [
         ({"device_mesh": object()}, NotImplementedError),
-        ({"async_results": True}, NotImplementedError),
+        ({"real_batch": 0}, ValueError),
         ({"ir_backend": "pallas"}, ValueError),
         ({"seeds": [1, 2, 3]}, ValueError),
         ({"clip_lengths": [1]}, ValueError),
