@@ -7,12 +7,13 @@ an NVIDIA GPU (``device="cuda"``, the default) or on the CPU
 RIR bank is a hand-written CUDA kernel (``csrc/rir_bank.cu``), built with
 nvcc at first use.
 
-Host-side constants and the float64 parameter math are shared with the
-JAX package (``config``, ``params``), which import no JAX.
+Host-side constants and the float64 parameter math (``config``,
+``params``, ``metering.kweighting``) are this package's own copies of the
+JAX package's modules: the port imports nothing of the JAX package.
 """
 
-from audio_raytracing_studio_tpu import config
-from audio_raytracing_studio_tpu.params import IRDraws, IRGeometry, RenderParams
+from . import config
+from .params import IRDraws, IRGeometry, RenderParams
 
 __version__ = "0.1.0"
 

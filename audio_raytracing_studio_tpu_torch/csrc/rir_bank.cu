@@ -1,69 +1,90 @@
-// Fused RIR bank for NVIDIA Hopper (sm_90a) — raw early/late IRs + per-tile stats.
+// Fused RIR bank for NVIDIA Hopper (sm_90a): final early/late IRs in two
+// launches, with the normalization epilogue inside the kernels.
 //
-// Two kernels, one per Pallas TPU kernel of
-// audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:
-//   rir_bank_kernel          replaces `_rir_block_kernel` (hash draws, reached
-//                            through `fused_rir_bank` → `_hash_bank`);
-//   rir_bank_injected_kernel replaces `_rir_bank_kernel` (explicit draws,
-//                            reached through `_injected_bank`) — see below.
+// Replaces the two Pallas TPU kernels of
+// audio_raytracing_studio_tpu/ops/ir_synth_pallas.py and the jnp epilogue
+// that follows the first:
+//   hash draws      `_rir_block_kernel` (:121, called by `_hash_bank` at
+//                   :503) and `_finalize_bank` (:269) — the main path;
+//   injected draws  `_rir_bank_kernel` (:318, called by `_injected_bank` at
+//                   :553) — the oracle-parity path.
 // Reference semantics: raytracer_studio.py:238-308.  The wrappers and the
 // plain PyTorch versions (`_rir_block_plain`, `_rir_bank_plain`) live in
-// ops/ir_synth_cuda.py; all feed the same epilogue (`_finalize_bank`, plain
-// torch, as in the JAX package).
+// ops/ir_synth_cuda.py.
 //
-// What rir_bank_kernel computes, per (bank entry b, tile of kTile samples):
-//   early  — ≤80 early taps drawn from the DELAY/STRENGTH counter streams,
-//            amplitude law `early_tap_amps`, placed at sample d_k;
-//   late   — counter-hash uniform noise at t = pos − split_point, smoothed
-//            by the w-tap 'same' moving average, times
-//            initial_amp·exp(t·log_decay), zero outside [0, late_length);
-//   stats  — 8 floats: noise sum, noise centered M2, smoothed sum, smoothed
-//            centered M2, max|early|, max|tail|, valid count, 0.
-// Outputs are written in flat sample order straight into (B, length).
+// What bank entry b gets:
+//   early — ≤80 taps (delay d_k, amplitude `early_tap_amps`) summed in tap
+//           order at their samples, times 0.9 / max|early|;
+//   late  — noise at tail index t = pos − split_point, smoothed by the
+//           w-tap 'same' moving average, times initial_amp·exp(t·log_decay)
+//           and the variance restore std(noise) / std(smoothed), then times
+//           0.7 / max|late|; zero outside [0, late_length).  With injected
+//           draws an entry whose smoothed noise has std ≤ 1e-6 keeps the raw
+//           noise and no variance restore (`synthesize`'s fallback).
+// The noise is a counter hash of (seed, t) or a row in memory; one templated
+// body serves both sources.
 //
-// Bound: integer ALU.  Every late sample hashes once per smoothing tap
-// (w ≤ 10 lowbias32 evaluations, ~12 integer ops each) and writes 8 bytes
-// (one float to early, one to late); nothing is read from device memory
-// but the (B, 4) scalar table and the seeds.  At the bench shape
-// (B=48, length=72,000) that is ~35 M hashes and 28 MB written.
+// Bound: bytes.  A call writes early and late once, 8·B·L bytes, and the
+// injected source reads its noise once, 4·B·late_length bytes: at the bench
+// shape (B=48, L=72,000, late_length 68,160) 27.65 MB and 40.74 MB, i.e.
+// 8.25 µs and 12.16 µs at 3.35 TB/s.  The function's arithmetic (one
+// lowbias32 per late sample for the hash source, ~16 float operations and
+// one exp per sample) is an order of magnitude below that.  The kernels
+// take longer than the bytes: each pass is bound by the latency of its
+// blocks' instruction streams (16 samples per thread, each with the plain
+// version's exact arithmetic — w ordered adds, an IEEE division, an
+// accurate expf, no FMA contraction — and the noise rebuilt in both
+// passes), not by memory (PERF.md section 6).
 //
-// Design:
-//   - grid (n_tiles, B), kThreads threads, kPerThread samples per thread
-//     held in registers; neighbouring threads write neighbouring samples.
-//   - the smoothing re-hashes the shifted counter indices (counter-based
-//     draws are order-free), so no tile reads a neighbour's noise: no halo,
-//     no cross-block state, any tile size gives the same samples.
-//   - early taps: only tiles with base < split_point build them.  Threads
-//     0..79 draw one tap each into shared memory; each sample then sums its
-//     matching taps in tap order — no atomics and no tensor cores, so
-//     duplicate delays add up deterministically.
-//   - stats: one block reduction gives the sums and count, hence the means;
-//     the centered M2 is then a second pass over the registers (free — the
-//     data never left them), which avoids the sumsq/n − mean² cancellation.
-//     Tiles combine by Chan's formula in `_finalize_bank`.
-//   - the launcher returns cudaGetLastError() so a refused launch surfaces.
+// Design: two launches on one stream, grid (n_tiles, B), tiles of 4096.
+//   stats pass  each block stages its tile's noise plus a w − 1 halo in
+//               shared memory (the hash source hashes each index once),
+//               sums the w taps of each sample from there and writes 8
+//               per-tile partials and no sample: noise sum and centered M2,
+//               smoothed sum and centered M2 (from the tap sums, divided by
+//               w once per tile), max|early|, max|late| before scaling (its
+//               envelope from __expf: it only sets a peak scale), the valid
+//               count, and max|raw-noise tail| (injected source; 0 for the
+//               hash).
+//   write pass  warp 0 of each block Chan-combines its entry's partials in
+//               a fixed order, so every block of the entry derives the same
+//               scales (variance restore, 0.9 / 0.7 peaks, the raw-noise
+//               decision); meanwhile the block stages its noise again (from
+//               L2 for the injected source) and then writes each final
+//               sample once — 16-byte stores for whole aligned quads of the
+//               flat (B, L) output, scalar stores for the ragged ends.
+// The sums and maxima of a tile are one stacked two-stage reduction, the
+// centered M2s a second.  No atomics and no tensor cores: taps with equal
+// delays add up in tap order and the w smoothing taps in the order of
+// `_moving_average_same`, so with -fmad=false the final samples agree with
+// the plain version up to the round-off of the per-entry scales.  The
+// common width w = 10 (every 16 kHz and 48 kHz geometry) has kernels with
+// the width fixed at compile time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 4096;                     // samples per tile (must match TILE)
+constexpr int kTile = 4096;                      // samples per tile (TILE)
 constexpr int kThreads = 256;
-constexpr int kPerThread = kTile / kThreads;    // 16 samples per thread
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxReflections = 80;             // config.REF_COUNT_CLIP[1]
+constexpr int kQuadsPerThread = kTile / 4 / kThreads;  // stats pass: 4 quads
+constexpr int kMaxReflections = 80;              // config.REF_COUNT_CLIP[1]
 constexpr int kStats = 8;
-constexpr int kMaxWidth = 64;                   // smoothing width cap (config allows ≤ 10)
+constexpr int kMaxWidth = 10;                    // config.NOISE_SMOOTH_CLIP[1]
+constexpr int kWindow = 16;                      // floats a quad reads (≥ 3 + kMaxWidth)
+constexpr int kStage = kTile + kWindow + 4;      // staged noise: tile, halo, alignment
+constexpr int kTapThread = 32;                   // write pass: warps 1.. draw the taps
 
-constexpr uint32_t kPhi = 0x9E3779B9u;          // ops/rng.py
+constexpr uint32_t kPhi = 0x9E3779B9u;           // ops/rng.py
 constexpr uint32_t kDelayStream = 0xA511E9B3u;
 constexpr uint32_t kStrengthStream = 0x63D83595u;
 constexpr uint32_t kNoiseStream = 0xC2B2AE35u;
 
-static_assert(kTile % kThreads == 0, "tile must split evenly over threads");
-static_assert(kPerThread <= 32, "valid mask is one 32-bit word");
-static_assert(kThreads >= kMaxReflections, "one thread per early tap");
+static_assert(kTile % (4 * kThreads) == 0, "a tile splits into whole quads per thread");
+static_assert(3 + kMaxWidth <= kWindow && kWindow % 4 == 0, "a quad's taps fit its window");
+static_assert(kTapThread + kMaxReflections <= kThreads, "one thread per early tap");
 
 struct BankShape {
   int length;
@@ -73,9 +94,19 @@ struct BankShape {
   int late_length;
   int smooth_width;
   int early_active;
+  int unit_scales;  // checks only: write the unscaled samples
   float strength_lo;
   float strength_span;
   float delay_decay_exp;
+};
+
+// Where the randomness comes from: seeds (hash source) or explicit draws.
+struct Draws {
+  const int32_t* seeds;      // (B,)
+  const int32_t* delays;     // (B, 80)
+  const float* strengths;    // (B, 80)
+  const float* noise;        // (B, noise_stride)
+  int noise_stride;
 };
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
@@ -96,13 +127,6 @@ __device__ __forceinline__ float uniform_from_bits(uint32_t bits, float lo, floa
   return lo + (one_to_two - 1.0f) * span;
 }
 
-// Uniform [-1, 1) noise at tail index idx; 0 outside [0, late_length) —
-// the zero padding of the reference's 'same' smoothing at both tail edges.
-__device__ __forceinline__ float noise_at(uint32_t mix, int idx, int late_length) {
-  if (idx < 0 || idx >= late_length) return 0.0f;
-  return uniform_from_bits(counter_bits(mix, static_cast<uint32_t>(idx)), -1.0f, 2.0f);
-}
-
 // early_tap_amps (ops/ir_synth.py), same operation order.
 __device__ __forceinline__ float early_tap_amp(int delay, float strength,
                                                float one_minus_absorption, float directionality,
@@ -113,439 +137,575 @@ __device__ __forceinline__ float early_tap_amp(int delay, float strength,
   return strength * one_minus_absorption * fminf(fmaxf(directionality, 0.1f), 1.0f) * falloff;
 }
 
-// Sum (take_max=false) or max (take_max=true, of non-negative values) over
-// the block; every thread gets the result.  0 is the identity of both.
-__device__ float block_reduce(float v, bool take_max) {
-  __shared__ float scratch[kWarps];
-  __shared__ float result;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_down_sync(0xffffffffu, v, off);
-    v = take_max ? fmaxf(v, o) : v + o;
-  }
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? scratch[lane] : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_down_sync(0xffffffffu, v, off);
-      v = take_max ? fmaxf(v, o) : v + o;
+// One entry's randomness: the counter streams of its seed, or its rows of
+// the injected draws.
+template <bool kInjected>
+struct Entry {
+  uint32_t seed = 0;
+  uint32_t noise_mix = 0;
+  const int32_t* delays = nullptr;
+  const float* strengths = nullptr;
+  const float* noise = nullptr;
+
+  __device__ Entry(const Draws& d, int b) {
+    if constexpr (kInjected) {
+      delays = d.delays + b * kMaxReflections;
+      strengths = d.strengths + b * kMaxReflections;
+      noise = d.noise + static_cast<size_t>(b) * d.noise_stride;
+    } else {
+      seed = static_cast<uint32_t>(d.seeds[b]);
+      noise_mix = lowbias32(seed ^ kNoiseStream);
     }
-    if (lane == 0) result = v;
   }
-  __syncthreads();
-  const float r = result;
-  __syncthreads();  // scratch and result are free for the next call
-  return r;
-}
 
-__global__ void __launch_bounds__(kThreads)
-rir_bank_kernel(const int32_t* __restrict__ seeds, const float* __restrict__ scal,
-                float* __restrict__ early, float* __restrict__ late,
-                float* __restrict__ stats, BankShape s) {
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const uint32_t seed = static_cast<uint32_t>(seeds[b]);
-  const float one_minus_absorption = scal[b * 4 + 0];
-  const float directionality = scal[b * 4 + 1];
-  const float log_decay = scal[b * 4 + 2];
-  const float initial_amp = scal[b * 4 + 3];
-  const int base = tile * kTile;
-  float* early_row = early + static_cast<size_t>(b) * s.length;
-  float* late_row = late + static_cast<size_t>(b) * s.length;
+  // Uniform [-1, 1) noise at tail index t ∈ [0, late_length).
+  __device__ __forceinline__ float noise_at(int t) const {
+    if constexpr (kInjected) {
+      return noise[t];
+    } else {
+      return uniform_from_bits(counter_bits(noise_mix, static_cast<uint32_t>(t)), -1.0f, 2.0f);
+    }
+  }
 
-  // --- early taps (ref :258-268): only tiles overlapping [1, split) ---
-  __shared__ int tap_delay[kMaxReflections];
-  __shared__ float tap_amp[kMaxReflections];
-  const bool has_taps = s.early_active && base < s.split_point;  // block-uniform
-  const int r_count = min(kMaxReflections, s.reflection_count);
-  if (has_taps) {
-    if (tid < kMaxReflections) {
+  __device__ void tap(int k, const BankShape& s, int* delay, float* strength) const {
+    if constexpr (kInjected) {
+      *delay = delays[k];
+      *strength = strengths[k];
+    } else {
       const int hi = max(2, s.actual_max_early_delay);
       const uint32_t modulus = static_cast<uint32_t>(max(1, hi - 1));
-      const uint32_t d_mix = lowbias32(seed ^ kDelayStream);
-      const uint32_t s_mix = lowbias32(seed ^ kStrengthStream);
-      const int delay = 1 + static_cast<int>(counter_bits(d_mix, tid) % modulus);
-      const float strength =
-          uniform_from_bits(counter_bits(s_mix, tid), s.strength_lo, s.strength_span);
-      const float amp = early_tap_amp(delay, strength, one_minus_absorption, directionality, s);
-      const bool valid = tid < r_count && delay > 0 && delay < s.split_point;
-      tap_delay[tid] = valid ? delay : -1;  // -1 matches no sample
-      tap_amp[tid] = valid ? amp : 0.0f;
+      *delay = 1 + static_cast<int>(counter_bits(lowbias32(seed ^ kDelayStream), k) % modulus);
+      *strength = uniform_from_bits(counter_bits(lowbias32(seed ^ kStrengthStream), k),
+                                    s.strength_lo, s.strength_span);
     }
-    __syncthreads();
   }
+};
 
-  // --- late tail (ref :270-296) ---
-  const uint32_t noise_mix = lowbias32(seed ^ kNoiseStream);
-  const bool has_late = s.late_length > 0;
-  const int w = s.smooth_width;
-  const bool smooth = w > 1 && s.late_length >= w;
-  const int lead = w / 2;
+// What a tile covers; every field is block-uniform.
+struct TileGeom {
+  int base;      // first sample
+  int t0;        // tail index of `base`
+  int width;     // smoothing taps (1 when the smoothing is off)
+  int lead;      // 'same' offset: tap k of sample t reads noise[t + k − lead]
+  bool smooth;
+  bool has_late;
+  bool has_taps;
+};
 
-  float noise_v[kPerThread];
-  float smooth_v[kPerThread];
-  uint32_t valid_mask = 0;
-  float sum_n = 0.0f, sum_s = 0.0f, count = 0.0f, max_e = 0.0f, max_t = 0.0f;
+// kW ≠ 0: the launcher saw smoothing active at width kW.
+template <int kW>
+__device__ TileGeom tile_geom(int tile, const BankShape& s) {
+  TileGeom g;
+  g.base = tile * kTile;
+  g.t0 = g.base - s.split_point;
+  g.smooth = kW ? true : s.smooth_width > 1 && s.late_length >= s.smooth_width;
+  g.width = kW ? kW : (g.smooth ? s.smooth_width : 1);
+  g.lead = kW ? kW / 2 : (g.smooth ? s.smooth_width / 2 : 0);
+  g.has_late = s.late_length > 0;
+  g.has_taps = s.early_active && g.base < s.split_point;
+  return g;
+}
+
+// Thread first + k (k < 80) draws tap k: its delay (−1 when masked) and
+// amplitude (ref :258-268).
+template <bool kInjected>
+__device__ void draw_taps(const Entry<kInjected>& e, const float* sc, const BankShape& s,
+                          int first, int* tap_delay, float* tap_amp) {
+  const int k = static_cast<int>(threadIdx.x) - first;
+  if (k < 0 || k >= kMaxReflections) return;
+  int delay;
+  float strength;
+  e.tap(k, s, &delay, &strength);
+  const float amp = early_tap_amp(delay, strength, sc[0], sc[1], s);
+  const bool valid = k < min(kMaxReflections, s.reflection_count) && delay > 0 &&
+                     delay < s.split_point;
+  tap_delay[k] = valid ? delay : -1;
+  tap_amp[k] = valid ? amp : 0.0f;
+}
+
+// Tap k's early sample, if k is the first tap at its delay and the delay lies
+// in [base, base + kTile): the amplitudes of every tap there, in tap order.
+// Otherwise *pos = −1.
+__device__ float tap_sample(int k, int r_count, const int* tap_delay, const float* tap_amp,
+                            int base, int* pos) {
+  *pos = -1;
+  const int d = tap_delay[k];
+  if (d < base || d >= base + kTile) return 0.0f;  // masked taps (−1) included
+  float v = 0.0f;
+  for (int j = 0; j < r_count; ++j) {
+    if (tap_delay[j] == d) {
+      if (j < k) return 0.0f;  // an earlier tap owns this sample
+      v += tap_amp[j];
+    }
+  }
+  *pos = d;
+  return v;
+}
+
+// buf[i] = noise at tail index first + i for i < need; 0 outside
+// [0, late_length) (the 'same' smoothing's zero padding) and from need on.
+template <bool kInjected>
+__device__ void stage_noise(float* buf, const Entry<kInjected>& e, int first, int need,
+                            int late_length) {
+  for (int i = threadIdx.x; i < kStage; i += kThreads) {
+    const int t = first + i;
+    buf[i] = (i < need && t >= 0 && t < late_length) ? e.noise_at(t) : 0.0f;
+  }
+}
+
+// Noise and smoothed noise of the 4 samples whose first taps are buf[at],
+// buf[at + 1], ... (at % 4 == 0): 4 vector reads of shared memory, then the
+// w taps of each sample summed in order k = 0..w−1; with kDivide the sums
+// are divided by w (the smoothed noise), else they stay sums.  kW ≠ 0 fixes
+// the width at compile time (no predicates); kW = 0 takes it at run time.
+template <int kW, bool kDivide = true>
+__device__ __forceinline__ void quad_at(const float* buf, int at, int width_rt, int lead_rt,
+                                        float nz[4], float sm[4]) {
+  const int width = kW ? kW : width_rt;
+  const int lead = kW ? kW / 2 : lead_rt;
+  float win[kWindow];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int pos = base + j * kThreads + tid;
-    float e = 0.0f;
-    if (has_taps) {
-      for (int k = 0; k < r_count; ++k) {
-        if (tap_delay[k] == pos) e += tap_amp[k];
-      }
+  for (int v = 0; v < kWindow / 4; ++v) {
+    const float4 f = reinterpret_cast<const float4*>(buf + at)[v];
+    win[4 * v + 0] = f.x;
+    win[4 * v + 1] = f.y;
+    win[4 * v + 2] = f.z;
+    win[4 * v + 3] = f.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float acc = 0.0f;
+    float raw = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kMaxWidth; ++k) {
+      if (k < width) acc += win[i + k];
+      if (k == lead) raw = win[i + k];
     }
-    float nz = 0.0f, sm = 0.0f, tail = 0.0f;
-    bool valid = false;
-    if (has_late) {
-      const int t = pos - s.split_point;  // tail index = noise counter
-      valid = t >= 0 && t < s.late_length;
-      nz = noise_at(noise_mix, t, s.late_length);
-      if (smooth) {
-        // np.convolve 'same': tap k reads noise[t + k − lead], re-hashed
-        float acc = 0.0f;
-        for (int k = 0; k < w; ++k) {
-          acc += (k == lead) ? nz : noise_at(noise_mix, t + k - lead, s.late_length);
-        }
-        sm = acc / static_cast<float>(w);
-      } else {
-        sm = nz;
-      }
-      const float envelope = expf(static_cast<float>(max(t, 0)) * log_decay);
-      tail = valid ? sm * initial_amp * envelope : 0.0f;
-    }
-    if (pos < s.length) {
-      early_row[pos] = e;
-      late_row[pos] = tail;
-    }
-    noise_v[j] = nz;  // already 0 outside the tail
-    smooth_v[j] = valid ? sm : 0.0f;
-    valid_mask |= (valid ? 1u : 0u) << j;
-    sum_n += nz;
-    sum_s += smooth_v[j];
-    count += valid ? 1.0f : 0.0f;
-    max_e = fmaxf(max_e, fabsf(e));
-    max_t = fmaxf(max_t, fabsf(tail));
+    nz[i] = raw;
+    sm[i] = width > 1 ? (kDivide ? acc / static_cast<float>(width) : acc) : raw;
+  }
+}
+
+// The same for one sample whose first tap is buf[at] (the ragged ends).
+template <int kW>
+__device__ __forceinline__ void sample_at(const float* buf, int at, int width_rt, int lead_rt,
+                                          float* nz, float* sm) {
+  const int width = kW ? kW : width_rt;
+  const int lead = kW ? kW / 2 : lead_rt;
+  float acc = 0.0f;
+  for (int k = 0; k < width; ++k) acc += buf[at + k];
+  *nz = buf[at + lead];
+  *sm = width > 1 ? acc / static_cast<float>(width) : *nz;
+}
+
+// Valid tail samples of a tile: [base, base + kTile) ∩ [split, length).
+__device__ __forceinline__ int valid_count(const TileGeom& g, const BankShape& s) {
+  if (!g.has_late) return 0;
+  const int lo = max(g.base, s.split_point);
+  const int hi = min(g.base + kTile, s.split_point + s.late_length);
+  return max(0, hi - lo);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// Stats pass: per-tile partials, no samples.
+// ---------------------------------------------------------------------------
+// Both passes: ≤ 64 registers, so 4 blocks of 256 threads fit an SM.
+template <bool kInjected, int kW>
+__global__ void __launch_bounds__(kThreads, 4)
+bank_stats_kernel(Draws draws, const float* __restrict__ scal, float* __restrict__ stats,
+                  BankShape s) {
+  __shared__ __align__(16) float buf[kStage];
+  __shared__ int tap_delay[kMaxReflections];
+  __shared__ float tap_amp[kMaxReflections];
+  __shared__ float partial[kWarps][5];
+  __shared__ float partial_m2[kWarps][2];
+
+  const int tile = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const Entry<kInjected> e(draws, b);
+  const float* sc = scal + b * 4;
+  const TileGeom g = tile_geom<kW>(tile, s);
+
+  if (g.has_taps) draw_taps(e, sc, s, 0, tap_delay, tap_amp);
+  if (g.has_late) stage_noise(buf, e, g.t0 - g.lead, kTile + g.width - 1, s.late_length);
+  __syncthreads();
+
+  float max_e = 0.0f;
+  if (g.has_taps && tid < kMaxReflections) {
+    int pos;
+    max_e = fabsf(tap_sample(tid, min(kMaxReflections, s.reflection_count), tap_delay,
+                             tap_amp, g.base, &pos));
   }
 
-  // --- per-tile stats: sums → means → centered M2 from the registers ---
-  const float n_b = block_reduce(count, false);
-  const float tot_n = block_reduce(sum_n, false);
-  const float tot_s = block_reduce(sum_s, false);
-  const float denom = fmaxf(n_b, 1.0f);
-  const float mean_n = tot_n / denom;
-  const float mean_s = tot_s / denom;
+  // late: noise and w-tap sums of 16 samples per thread, kept for M2.  The
+  // smoothed noise is sum / w: its partials are the sums' divided by w (and
+  // w² for M2) once per tile, not a division per sample.  The maxima take
+  // the envelope from __expf (a few ulps): they only set the peak scales.
+  float nz[kQuadsPerThread][4];
+  float sm[kQuadsPerThread][4];
+  float sum_n = 0.0f, sum_s = 0.0f, max_t = 0.0f, max_r = 0.0f;
+  const float log_decay = sc[2];
+  const float amp = sc[3];
+#pragma unroll
+  for (int j = 0; j < kQuadsPerThread; ++j) {
+    const int l0 = 4 * (j * kThreads + tid);
+    float qn[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float qs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (g.has_late) quad_at<kW, false>(buf, l0, g.width, g.lead, qn, qs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = g.t0 + l0 + i;
+      const bool valid = g.has_late && t >= 0 && t < s.late_length;
+      const float env = valid ? __expf(static_cast<float>(t) * log_decay) : 0.0f;
+      nz[j][i] = qn[i];  // staged as 0 outside the tail
+      sm[j][i] = valid ? qs[i] : 0.0f;
+      sum_n += qn[i];
+      sum_s += sm[j][i];
+      max_t = fmaxf(max_t, fabsf(valid ? qs[i] * amp * env : 0.0f));
+      if constexpr (kInjected) max_r = fmaxf(max_r, fabsf(valid ? qn[i] * amp * env : 0.0f));
+    }
+  }
+
+  // sums and maxima, stacked: warp shuffles, then every thread combines the
+  // warps' partials in warp order
+  sum_n = warp_sum(sum_n);
+  sum_s = warp_sum(sum_s);
+  max_e = warp_max(max_e);
+  max_t = warp_max(max_t);
+  max_r = warp_max(max_r);
+  if (lane == 0) {
+    partial[warp][0] = sum_n;
+    partial[warp][1] = sum_s;
+    partial[warp][2] = max_e;
+    partial[warp][3] = max_t;
+    partial[warp][4] = max_r;
+  }
+  __syncthreads();
+  float tot_n = 0.0f, tot_s = 0.0f;
+  max_e = max_t = max_r = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    tot_n += partial[w][0];
+    tot_s += partial[w][1];
+    max_e = fmaxf(max_e, partial[w][2]);
+    max_t = fmaxf(max_t, partial[w][3]);
+    max_r = fmaxf(max_r, partial[w][4]);
+  }
+  const float n_b = static_cast<float>(valid_count(g, s));
+  const float mean_n = tot_n / fmaxf(n_b, 1.0f);
+  const float mean_s = tot_s / fmaxf(n_b, 1.0f);
+
+  // centered M2 from the registers: no sumsq/n − mean² cancellation
   float m2_n = 0.0f, m2_s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    if (valid_mask & (1u << j)) {
-      const float dn = noise_v[j] - mean_n;
-      const float ds = smooth_v[j] - mean_s;
-      m2_n += dn * dn;
-      m2_s += ds * ds;
+  for (int j = 0; j < kQuadsPerThread; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = g.t0 + 4 * (j * kThreads + tid) + i;
+      if (g.has_late && t >= 0 && t < s.late_length) {
+        const float dn = nz[j][i] - mean_n;
+        const float ds = sm[j][i] - mean_s;
+        m2_n += dn * dn;
+        m2_s += ds * ds;
+      }
     }
   }
-  m2_n = block_reduce(m2_n, false);
-  m2_s = block_reduce(m2_s, false);
-  max_e = block_reduce(max_e, true);
-  max_t = block_reduce(max_t, true);
+  m2_n = warp_sum(m2_n);
+  m2_s = warp_sum(m2_s);
+  if (lane == 0) {
+    partial_m2[warp][0] = m2_n;
+    partial_m2[warp][1] = m2_s;
+  }
+  __syncthreads();
   if (tid == 0) {
-    float* out = stats + (static_cast<size_t>(b) * gridDim.x + tile) * kStats;
-    out[0] = tot_n;
-    out[1] = m2_n;  // centered M2 (noise)
-    out[2] = tot_s;
-    out[3] = m2_s;  // centered M2 (smoothed)
-    out[4] = max_e;
-    out[5] = max_t;
-    out[6] = n_b;
-    out[7] = 0.0f;
+    m2_n = m2_s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      m2_n += partial_m2[w][0];
+      m2_s += partial_m2[w][1];
+    }
+    const float w = static_cast<float>(g.width);
+    float4* out = reinterpret_cast<float4*>(
+        stats + (static_cast<size_t>(b) * gridDim.x + tile) * kStats);
+    out[0] = make_float4(tot_n, m2_n, tot_s / w, m2_s / (w * w));
+    out[1] = make_float4(max_e, max_t / w, n_b, max_r);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Injected-draws bank: replaces `_rir_bank_kernel` (ir_synth_pallas.py:318,
-// reached through `_injected_bank`, :553) — the oracle-parity path, where the
-// IRs come from explicit draws (`IRDraws`) instead of the counter hash.
-//
-// Same grid, tile, output layout and stats as rir_bank_kernel, so the same
-// epilogue applies.  What differs:
-//   - taps: delays/strengths (B, 80) are read from memory;
-//   - tail: the noise is data, (B, noise_stride) flat.  Each block stages its
-//     tile plus a halo of w − 1 samples in shared memory (zeros outside
-//     [0, late_length): the 'same' smoothing's zero padding), and each sample
-//     sums its w neighbours there in tap order k = 0..w−1, as the plain
-//     `_moving_average_same` does;
-//   - the degenerate-smoothing rule of `synthesize` (ops/ir_synth.py): when
-//     std(smoothed) ≤ 1e-6 the tail is the RAW noise, not the smoothed one.
-//     std(smoothed) is a reduction over every tile of the entry, so the last
-//     block of each entry to finish (an atomic ticket in `done`) Chan-combines
-//     the entry's tile stats, and only if the entry is degenerate rewrites its
-//     tail as raw noise · initial_amp · envelope, re-takes the per-tile
-//     max|tail| (slot 5) and sets slot 7 of tile 0 to 1 — the epilogue then
-//     skips the variance restore for that entry.  One launch; no host sync.
-//
-// Bound: memory.  It reads the noise once (+ (w−1)/4096 halo) and writes
-// early and late: at B=48 × 72,000, ~14 MB read and ~28 MB written.
+// Write pass: the entry's scales from its partials, then the final samples.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-rir_bank_injected_kernel(const int32_t* __restrict__ delays,
-                         const float* __restrict__ strengths,
-                         const float* __restrict__ noise, int noise_stride,
-                         const float* __restrict__ scal, float* __restrict__ early,
-                         float* __restrict__ late, float* __restrict__ stats,
-                         int* __restrict__ done, BankShape s) {
+// Run by one whole warp: every lane reads the rows i ≡ lane (mod 32) in
+// index order and the butterfly sums give every lane the same totals, so
+// every block of the entry computes the same scales.  Mirrors
+// `_entry_scales` (ops/ir_synth_cuda.py).
+template <bool kInjected>
+__device__ void entry_scales(const float* __restrict__ rows, int n_tiles, const BankShape& s,
+                             float* early_scale, float* late_scale, int* raw) {
+  const int lane = threadIdx.x & 31;
+  float sum_n = 0.0f, m2_n = 0.0f, sum_s = 0.0f, m2_s = 0.0f;
+  float max_e = 0.0f, max_t = 0.0f, max_r = 0.0f;
+  for (int i = lane; i < n_tiles; i += 32) {
+    const float4 a = reinterpret_cast<const float4*>(rows + i * kStats)[0];
+    const float4 c = reinterpret_cast<const float4*>(rows + i * kStats)[1];
+    sum_n += a.x;
+    m2_n += a.y;
+    sum_s += a.z;
+    m2_s += a.w;
+    max_e = fmaxf(max_e, c.x);
+    max_t = fmaxf(max_t, c.y);
+    max_r = fmaxf(max_r, c.w);
+  }
+  sum_n = warp_sum(sum_n);
+  m2_n = warp_sum(m2_n);
+  sum_s = warp_sum(sum_s);
+  m2_s = warp_sum(m2_s);
+  max_e = warp_max(max_e);
+  max_t = warp_max(max_t);
+  max_r = warp_max(max_r);
+
+  float c = 1.0f;
+  bool raw_noise = false;
+  if (s.late_length > 0 && s.smooth_width > 1 && s.late_length >= s.smooth_width) {
+    // Chan: var = (Σ M2_b + Σ n_b·(mean_b − mean)²) / n, as `_tail_stds`
+    const float n = static_cast<float>(s.late_length);
+    const float mean_n = sum_n / n;
+    const float mean_s = sum_s / n;
+    float between_n = 0.0f, between_s = 0.0f;
+    for (int i = lane; i < n_tiles; i += 32) {
+      const float4 a = reinterpret_cast<const float4*>(rows + i * kStats)[0];
+      const float n_b = rows[i * kStats + 6];
+      const float dn = a.x / fmaxf(n_b, 1.0f) - mean_n;
+      const float ds = a.z / fmaxf(n_b, 1.0f) - mean_s;
+      between_n += n_b * (dn * dn);
+      between_s += n_b * (ds * ds);
+    }
+    between_n = warp_sum(between_n);
+    between_s = warp_sum(between_s);
+    const float std_n = sqrtf(fmaxf((m2_n + between_n) / n, 0.0f));
+    const float std_s = sqrtf(fmaxf((m2_s + between_s) / n, 0.0f));
+    const bool restore = std_s > 1e-6f;
+    c = restore ? std_n / std_s : 1.0f;
+    if (kInjected && !restore) {  // degenerate smoothing: the raw noise stands
+      raw_noise = true;
+      max_t = max_r;
+    }
+  }
+  const float late_peak = max_t * c;
+  float ls = c * (late_peak > 1e-6f ? 0.7f / late_peak : 1.0f);   // config.LATE_NORM_PEAK
+  float es = max_e > 1e-6f ? 0.9f / max_e : 1.0f;                  // config.EARLY_NORM_PEAK
+  if (s.unit_scales) es = ls = 1.0f;
+  if (lane == 0) {
+    *early_scale = es;
+    *late_scale = ls;
+    *raw = raw_noise ? 1 : 0;
+  }
+}
+
+template <bool kInjected, int kW>
+__global__ void __launch_bounds__(kThreads, 4)
+bank_write_kernel(Draws draws, const float* __restrict__ scal, const float* __restrict__ stats,
+                  float* __restrict__ early, float* __restrict__ late,
+                  int32_t* __restrict__ raw_flags, BankShape s) {
+  __shared__ __align__(16) float buf[kStage];
+  __shared__ int tap_delay[kMaxReflections];
+  __shared__ float tap_amp[kMaxReflections];
+  __shared__ float scale_e, scale_l;
+  __shared__ int raw_entry;
+
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const float one_minus_absorption = scal[b * 4 + 0];
-  const float directionality = scal[b * 4 + 1];
-  const float log_decay = scal[b * 4 + 2];
-  const float initial_amp = scal[b * 4 + 3];
-  const int base = tile * kTile;
-  float* early_row = early + static_cast<size_t>(b) * s.length;
-  float* late_row = late + static_cast<size_t>(b) * s.length;
-  const float* noise_row = noise + static_cast<size_t>(b) * noise_stride;
+  const Entry<kInjected> e(draws, b);
+  const float* sc = scal + b * 4;
+  const TileGeom g = tile_geom<kW>(tile, s);
 
-  // --- early taps (ref :258-268) from the injected draws ---
-  __shared__ int tap_delay[kMaxReflections];
-  __shared__ float tap_amps[kMaxReflections];
-  const bool has_taps = s.early_active && base < s.split_point;  // block-uniform
-  const int r_count = min(kMaxReflections, s.reflection_count);
-  if (has_taps) {
-    if (tid < kMaxReflections) {
-      const int delay = delays[b * kMaxReflections + tid];
-      const float strength = strengths[b * kMaxReflections + tid];
-      const float amp = early_tap_amp(delay, strength, one_minus_absorption, directionality, s);
-      const bool valid = tid < r_count && delay > 0 && delay < s.split_point;
-      tap_delay[tid] = valid ? delay : -1;  // -1 matches no sample
-      tap_amps[tid] = valid ? amp : 0.0f;
-    }
-    __syncthreads();
-  }
+  // The tile's samples inside the IR, split on the flat (B, L) output into a
+  // scalar head up to the first 16-byte boundary, whole quads, a scalar tail.
+  const size_t row_base = static_cast<size_t>(b) * s.length + g.base;
+  const int len = min(kTile, s.length - g.base);
+  const int head = min(len, static_cast<int>((4u - (row_base & 3u)) & 3u));
+  const int quads = (len - head) / 4;
+  const int tail = len - head - 4 * quads;
+  const int pad = (4 - head) & 3;  // sample l's first tap is buf[l + pad]: quads read aligned
 
-  // --- noise tile + smoothing halo in shared memory ---
-  __shared__ float s_noise[kTile + kMaxWidth - 1];
-  const bool has_late = s.late_length > 0;
-  const int w = s.smooth_width;
-  const bool smooth = w > 1 && s.late_length >= w;
-  const int width = smooth ? w : 1;
-  const int lead = smooth ? w / 2 : 0;
-  const int t0 = base - s.split_point;  // tail index of the tile's first sample
-  if (has_late) {
-    for (int i = tid; i < kTile + width - 1; i += kThreads) {
-      const int idx = t0 - lead + i;
-      s_noise[i] = (idx >= 0 && idx < s.late_length) ? noise_row[idx] : 0.0f;
-    }
-    __syncthreads();
+  if (tid < 32) {
+    entry_scales<kInjected>(stats + static_cast<size_t>(b) * gridDim.x * kStats, gridDim.x, s,
+                            &scale_e, &scale_l, &raw_entry);
   }
-
-  float noise_v[kPerThread];
-  float smooth_v[kPerThread];
-  uint32_t valid_mask = 0;
-  float sum_n = 0.0f, sum_s = 0.0f, count = 0.0f, max_e = 0.0f, max_t = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int local = j * kThreads + tid;
-    const int pos = base + local;
-    float e = 0.0f;
-    if (has_taps) {
-      for (int k = 0; k < r_count; ++k) {
-        if (tap_delay[k] == pos) e += tap_amps[k];
-      }
-    }
-    float nz = 0.0f, sm = 0.0f, tail = 0.0f;
-    bool valid = false;
-    if (has_late) {
-      const int t = pos - s.split_point;
-      valid = t >= 0 && t < s.late_length;
-      nz = s_noise[local + lead];  // 0 outside the tail
-      if (smooth) {
-        // np.convolve 'same': tap k reads noise[t + k − lead]
-        float acc = 0.0f;
-        for (int k = 0; k < w; ++k) acc += s_noise[local + k];
-        sm = acc / static_cast<float>(w);
-      } else {
-        sm = nz;
-      }
-      const float envelope = expf(static_cast<float>(max(t, 0)) * log_decay);
-      tail = valid ? sm * initial_amp * envelope : 0.0f;
-    }
-    if (pos < s.length) {
-      early_row[pos] = e;
-      late_row[pos] = tail;
-    }
-    noise_v[j] = nz;
-    smooth_v[j] = valid ? sm : 0.0f;
-    valid_mask |= (valid ? 1u : 0u) << j;
-    sum_n += nz;
-    sum_s += smooth_v[j];
-    count += valid ? 1.0f : 0.0f;
-    max_e = fmaxf(max_e, fabsf(e));
-    max_t = fmaxf(max_t, fabsf(tail));
+  if (g.has_taps) draw_taps(e, sc, s, kTapThread, tap_delay, tap_amp);
+  if (g.has_late) {
+    stage_noise(buf, e, g.t0 - g.lead - pad, kTile + pad + g.width - 1, s.late_length);
   }
-
-  // --- per-tile stats, as rir_bank_kernel ---
-  const float n_b = block_reduce(count, false);
-  const float tot_n = block_reduce(sum_n, false);
-  const float tot_s = block_reduce(sum_s, false);
-  const float denom = fmaxf(n_b, 1.0f);
-  const float mean_n = tot_n / denom;
-  const float mean_s = tot_s / denom;
-  float m2_n = 0.0f, m2_s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    if (valid_mask & (1u << j)) {
-      const float dn = noise_v[j] - mean_n;
-      const float ds = smooth_v[j] - mean_s;
-      m2_n += dn * dn;
-      m2_s += ds * ds;
-    }
-  }
-  m2_n = block_reduce(m2_n, false);
-  m2_s = block_reduce(m2_s, false);
-  max_e = block_reduce(max_e, true);
-  max_t = block_reduce(max_t, true);
-  const int n_tiles = gridDim.x;
-  float* entry_stats = stats + static_cast<size_t>(b) * n_tiles * kStats;
-  if (tid == 0) {
-    float* out = entry_stats + tile * kStats;
-    out[0] = tot_n;
-    out[1] = m2_n;
-    out[2] = tot_s;
-    out[3] = m2_s;
-    out[4] = max_e;
-    out[5] = max_t;
-    out[6] = n_b;
-    out[7] = 0.0f;  // 1 in tile 0 = raw-noise fallback (set below)
-  }
-  if (!(has_late && smooth)) return;  // no variance restore → no fallback
-
-  // --- last block of this entry: the degenerate-smoothing decision ---
-  __shared__ int is_last;
-  __threadfence();  // this block's stats and tail are visible device-wide
   __syncthreads();
-  if (tid == 0) is_last = atomicAdd(done + b, 1) == n_tiles - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
+  const float early_scale = scale_e;
+  const float late_scale = scale_l;
+  const bool raw = raw_entry != 0;
+  if (raw_flags != nullptr && tile == 0 && tid == 0) raw_flags[b] = raw_entry;
 
-  // Chan-combined variance of the smoothed tail, as `_finalize_bank`
-  const float n = static_cast<float>(s.late_length);
-  float sums = 0.0f, m2s = 0.0f;
-  for (int i = tid; i < n_tiles; i += kThreads) {
-    sums += __ldcg(entry_stats + i * kStats + 2);
-    m2s += __ldcg(entry_stats + i * kStats + 3);
-  }
-  sums = block_reduce(sums, false);
-  m2s = block_reduce(m2s, false);
-  const float mean = sums / n;
-  float between = 0.0f;
-  for (int i = tid; i < n_tiles; i += kThreads) {
-    const float nb = __ldcg(entry_stats + i * kStats + 6);
-    const float d = __ldcg(entry_stats + i * kStats + 2) / fmaxf(nb, 1.0f) - mean;
-    between += nb * (d * d);
-  }
-  between = block_reduce(between, false);
-  const float std_s = sqrtf(fmaxf((m2s + between) / n, 0.0f));
-  if (std_s > 1e-6f) return;  // block-uniform: the smoothed tail stands
+  const float log_decay = sc[2];
+  const float amp = sc[3];
+  float* early_out = early + row_base;
+  float* late_out = late + row_base;
 
-  // degenerate: the tail is the raw noise (synthesize's fallback)
-  for (int i = 0; i < n_tiles; ++i) {
-    float mx = 0.0f;
-    for (int local = tid; local < kTile; local += kThreads) {
-      const int pos = i * kTile + local;
-      if (pos >= s.length) break;
-      const int t = pos - s.split_point;
-      float v = 0.0f;
-      if (t >= 0 && t < s.late_length) {
-        const float envelope = expf(static_cast<float>(t) * log_decay);
-        v = noise_row[t] * initial_amp * envelope;
+  for (int q = tid; q < quads; q += kThreads) {
+    const int l0 = head + 4 * q;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (g.has_late) {
+      float qn[4], qs[4];
+      quad_at<kW>(buf, l0 + pad, g.width, g.lead, qn, qs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = g.t0 + l0 + i;
+        if (t >= 0 && t < s.late_length) {
+          const float env = expf(static_cast<float>(t) * log_decay);
+          v[i] = (raw ? qn[i] : qs[i]) * amp * env * late_scale;
+        }
       }
-      late_row[pos] = v;
-      mx = fmaxf(mx, fabsf(v));
     }
-    mx = block_reduce(mx, true);
-    if (tid == 0) entry_stats[i * kStats + 5] = mx;
+    reinterpret_cast<float4*>(late_out + l0)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(early_out + l0)[0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  if (tid == 0) entry_stats[7] = 1.0f;
+  // the ragged ends: ≤ 3 samples before the first quad, ≤ 3 after the last
+  if (tid < head + tail) {
+    const int l = tid < head ? tid : head + 4 * quads + (tid - head);
+    float v = 0.0f;
+    const int t = g.t0 + l;
+    if (g.has_late && t >= 0 && t < s.late_length) {
+      float nz, sm;
+      sample_at<kW>(buf, l + pad, g.width, g.lead, &nz, &sm);
+      const float env = expf(static_cast<float>(t) * log_decay);
+      v = (raw ? nz : sm) * amp * env * late_scale;
+    }
+    late_out[l] = v;
+    early_out[l] = 0.0f;
+  }
+
+  if (g.has_taps) {
+    __syncthreads();  // the zeros above land before the taps overwrite them
+    const int k = tid - kTapThread;
+    if (k >= 0 && k < kMaxReflections) {
+      int pos;
+      const float val = tap_sample(k, min(kMaxReflections, s.reflection_count), tap_delay,
+                                   tap_amp, g.base, &pos);
+      if (pos >= 0) early[static_cast<size_t>(b) * s.length + pos] = val * early_scale;
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <bool kInjected, int kW>
+int launch_passes(const Draws& draws, const void* scal, void* early, void* late, void* stats,
+                  void* raw_flags, int batch, const BankShape& s, void* stream) {
+  const dim3 grid((s.length + kTile - 1) / kTile, batch);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bank_stats_kernel<kInjected, kW><<<grid, kThreads, 0, st>>>(
+      draws, static_cast<const float*>(scal), static_cast<float*>(stats), s);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bank_write_kernel<kInjected, kW><<<grid, kThreads, 0, st>>>(
+      draws, static_cast<const float*>(scal), static_cast<const float*>(stats),
+      static_cast<float*>(early), static_cast<float*>(late),
+      static_cast<int32_t*>(raw_flags), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The widest smoothing (every 16 kHz and 48 kHz geometry has w = 10) gets
+// kernels with the width fixed at compile time; other widths the general ones.
+template <bool kInjected>
+int launch_bank(const Draws& draws, const void* scal, void* early, void* late, void* stats,
+                void* raw_flags, int batch, const BankShape& s, void* stream) {
+  if (batch <= 0 || batch > 65535 || s.length <= 0 || s.smooth_width > kMaxWidth ||
+      !aligned16(early) || !aligned16(late) || !aligned16(stats)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (s.smooth_width == kMaxWidth && s.late_length >= kMaxWidth) {
+    return launch_passes<kInjected, kMaxWidth>(draws, scal, early, late, stats, raw_flags,
+                                               batch, s, stream);
+  }
+  return launch_passes<kInjected, 0>(draws, scal, early, late, stats, raw_flags, batch, s,
+                                     stream);
+}
+
+BankShape make_shape(int length, int split_point, int actual_max_early_delay,
+                     int reflection_count, int late_length, int smooth_width, int early_active,
+                     int unit_scales, float strength_lo, float strength_span,
+                     float delay_decay_exp) {
+  BankShape s;
+  s.length = length;
+  s.split_point = split_point;
+  s.actual_max_early_delay = actual_max_early_delay;
+  s.reflection_count = reflection_count;
+  s.late_length = late_length;
+  s.smooth_width = smooth_width;
+  s.early_active = early_active;
+  s.unit_scales = unit_scales;
+  s.strength_lo = strength_lo;
+  s.strength_span = strength_span;
+  s.delay_decay_exp = delay_decay_exp;
+  return s;
 }
 
 }  // namespace
 
-// Launch the bank on `stream`.  Pointers: seeds (B,) int32, scal (B, 4)
-// float32, early/late (B, length) float32, stats (B, n_tiles, 8) float32 —
-// all contiguous on the current device; the caller allocates them.
-// Returns 0 or the CUDA error of the launch.
-extern "C" int rir_bank_launch(const void* seeds, const void* scal, void* early,
-                               void* late, void* stats, int batch, int tile,
-                               int length, int split_point,
+// Hash-draws bank on `stream`: both passes, no host sync.  Pointers: seeds
+// (B,) int32, scal (B, 4) float32, early/late (B, length) float32, stats
+// (B, n_tiles, 8) float32 scratch — contiguous on the current device,
+// 16-byte aligned, allocated by the caller.  Returns 0 or the CUDA error of
+// the first launch that failed.
+extern "C" int rir_bank_launch(const void* seeds, const void* scal, void* early, void* late,
+                               void* stats, int batch, int tile, int length, int split_point,
                                int actual_max_early_delay, int reflection_count,
                                int late_length, int smooth_width, int early_active,
-                               float strength_lo, float strength_span,
+                               int unit_scales, float strength_lo, float strength_span,
                                float delay_decay_exp, void* stream) {
-  if (tile != kTile || batch <= 0 || batch > 65535 || length <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  BankShape s;
-  s.length = length;
-  s.split_point = split_point;
-  s.actual_max_early_delay = actual_max_early_delay;
-  s.reflection_count = reflection_count;
-  s.late_length = late_length;
-  s.smooth_width = smooth_width;
-  s.early_active = early_active;
-  s.strength_lo = strength_lo;
-  s.strength_span = strength_span;
-  s.delay_decay_exp = delay_decay_exp;
-  const dim3 grid((length + kTile - 1) / kTile, batch);
-  rir_bank_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(seeds), static_cast<const float*>(scal),
-      static_cast<float*>(early), static_cast<float*>(late),
-      static_cast<float*>(stats), s);
-  return static_cast<int>(cudaGetLastError());
+  if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
+  Draws draws = {static_cast<const int32_t*>(seeds), nullptr, nullptr, nullptr, 0};
+  const BankShape s = make_shape(length, split_point, actual_max_early_delay, reflection_count,
+                                 late_length, smooth_width, early_active, unit_scales,
+                                 strength_lo, strength_span, delay_decay_exp);
+  return launch_bank<false>(draws, scal, early, late, stats, nullptr, batch, s, stream);
 }
 
-// Launch the injected-draws bank on `stream`.  Pointers: delays (B, 80)
-// int32, strengths (B, 80) float32, noise (B, noise_stride) float32 with
-// noise_stride ≥ max(1, late_length), scal (B, 4) float32, early/late
-// (B, length) float32, stats (B, n_tiles, 8) float32, done (B,) int32
-// zeroed — all contiguous on the current device; the caller allocates them.
-// Returns 0 or the CUDA error of the launch.
+// Injected-draws bank on `stream`: both passes, no host sync.  Pointers:
+// delays (B, 80) int32, strengths (B, 80) float32, noise (B, noise_stride)
+// float32 with noise_stride ≥ max(1, late_length), scal (B, 4) float32,
+// early/late (B, length) float32, stats (B, n_tiles, 8) float32 scratch,
+// raw_flags (B,) int32 (1 = the entry kept its raw noise) — contiguous on the
+// current device, 16-byte aligned where written by vectors, allocated by the
+// caller.  Returns 0 or the CUDA error of the first launch that failed.
 extern "C" int rir_bank_injected_launch(const void* delays, const void* strengths,
-                                        const void* noise, int noise_stride,
-                                        const void* scal, void* early, void* late,
-                                        void* stats, void* done, int batch, int tile,
-                                        int length, int split_point,
+                                        const void* noise, int noise_stride, const void* scal,
+                                        void* early, void* late, void* stats, void* raw_flags,
+                                        int batch, int tile, int length, int split_point,
                                         int actual_max_early_delay, int reflection_count,
-                                        int late_length, int smooth_width,
-                                        int early_active, float delay_decay_exp,
-                                        void* stream) {
-  if (tile != kTile || batch <= 0 || batch > 65535 || length <= 0 ||
-      smooth_width > kMaxWidth || noise_stride < max(1, late_length)) {
+                                        int late_length, int smooth_width, int early_active,
+                                        int unit_scales, float delay_decay_exp, void* stream) {
+  if (tile != kTile || noise_stride < max(1, late_length)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  BankShape s;
-  s.length = length;
-  s.split_point = split_point;
-  s.actual_max_early_delay = actual_max_early_delay;
-  s.reflection_count = reflection_count;
-  s.late_length = late_length;
-  s.smooth_width = smooth_width;
-  s.early_active = early_active;
-  s.strength_lo = 0.0f;  // unused: the strengths are injected
-  s.strength_span = 0.0f;
-  s.delay_decay_exp = delay_decay_exp;
-  const dim3 grid((length + kTile - 1) / kTile, batch);
-  rir_bank_injected_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(delays), static_cast<const float*>(strengths),
-      static_cast<const float*>(noise), noise_stride, static_cast<const float*>(scal),
-      static_cast<float*>(early), static_cast<float*>(late), static_cast<float*>(stats),
-      static_cast<int*>(done), s);
-  return static_cast<int>(cudaGetLastError());
+  Draws draws = {nullptr, static_cast<const int32_t*>(delays),
+                 static_cast<const float*>(strengths), static_cast<const float*>(noise),
+                 noise_stride};
+  const BankShape s = make_shape(length, split_point, actual_max_early_delay, reflection_count,
+                                 late_length, smooth_width, early_active, unit_scales, 0.0f,
+                                 0.0f, delay_decay_exp);
+  return launch_bank<true>(draws, scal, early, late, stats, raw_flags, batch, s, stream);
 }

@@ -24,9 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from audio_raytracing_studio_tpu.metering import kweighting as kw
-
 from ..ops.convolution import fast_fft_length
+from . import kweighting as kw
 
 K_FIR_LENGTH = 8192
 

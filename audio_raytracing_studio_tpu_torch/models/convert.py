@@ -1,25 +1,34 @@
 """State carried across from the JAX package's host-side objects.
 
-``from_jax_setup`` turns the JAX package's ``models.pipeline.InternalSetup``
-into this package's, reading every field as NumPy through ``np.asarray`` and
-``._asdict()`` — no JAX import here — so tests can feed identical static
-shapes and scalars to both packages.  ``draws_from_numpy`` mirrors the JAX
-package's ``ops.ir_synth.draws_to_device`` (the oracle-parity injection for
-the plain ``synthesize``); ``bank_draws`` packs a list of ``IRDraws`` into
-the injected-draws bank's inputs.
+Nothing here imports the JAX package: each function reads the object it is
+handed through its fields.
+
+- ``from_jax_setup`` turns the JAX package's ``models.pipeline.InternalSetup``
+  into this package's, reading every field as NumPy through ``np.asarray``
+  and ``._asdict()``, so tests can feed identical static shapes and scalars
+  to both packages;
+- ``params_from_jax`` and ``draws_from_jax`` turn the JAX package's
+  ``RenderParams`` and ``IRDraws`` (frozen dataclasses) into this package's,
+  field by field through ``dataclasses.asdict``.
+
+``draws_from_numpy`` mirrors the JAX package's ``ops.ir_synth.draws_to_device``
+(the oracle-parity injection for the plain ``synthesize``); ``bank_draws``
+packs a list of draws into the injected-draws bank's inputs.  Both read
+``.delays``, ``.strengths`` and ``.noise`` through ``np.asarray``, so this
+package's ``IRDraws`` and the JAX package's serve alike.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from audio_raytracing_studio_tpu.params import IRDraws
-
-from ..ops.ir_synth import MAX_REFLECTIONS, IRScalars, IRShape
+from ..ops.ir_synth import MAX_REFLECTIONS, IRScalars, IRShape, to_device
 from ..ops.ir_synth_cuda import pack_draws
+from ..params import IRDraws, RenderParams
 from .pipeline import InternalSetup, MixScalars, StaticSpec
 
 
@@ -40,9 +49,19 @@ def from_jax_setup(setup) -> InternalSetup:
     )
 
 
-def _check_taps(draws: IRDraws) -> int:
+def params_from_jax(p) -> RenderParams:
+    """The JAX package's ``RenderParams`` → this package's (same fields)."""
+    return RenderParams(**dataclasses.asdict(p))
+
+
+def draws_from_jax(d) -> IRDraws:
+    """The JAX package's ``IRDraws`` → this package's (same arrays)."""
+    return IRDraws(**dataclasses.asdict(d))
+
+
+def _check_taps(draws) -> int:
     """Tap count of ``draws``; more than the static budget raises."""
-    n = len(draws.delays)
+    n = np.asarray(draws.delays).shape[0]
     if n > MAX_REFLECTIONS:
         # derive_ir_geometry does not clip reflection_count (only the
         # product path's adjust_parameters_for_3d does, ref :224) — a
@@ -56,15 +75,15 @@ def _check_taps(draws: IRDraws) -> int:
 
 
 def draws_from_numpy(
-    draws: IRDraws, device="cpu"
+    draws, device="cpu"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pad host IRDraws to the static tap budget → (delays, strengths, noise)
-    tensors on ``device``."""
+    """Pad host draws (an ``IRDraws``) to the static tap budget → (delays,
+    strengths, noise) tensors on ``device``."""
     n = _check_taps(draws)
     delays = np.zeros(MAX_REFLECTIONS, dtype=np.int32)
     strengths = np.zeros(MAX_REFLECTIONS, dtype=np.float32)
-    delays[:n] = draws.delays
-    strengths[:n] = draws.strengths
+    delays[:n] = np.asarray(draws.delays)
+    strengths[:n] = np.asarray(draws.strengths)
     noise = np.asarray(draws.noise, dtype=np.float32)
     if noise.size == 0:
         noise = np.zeros(1, dtype=np.float32)
@@ -72,11 +91,12 @@ def draws_from_numpy(
 
 
 def bank_draws(
-    draws: Sequence[IRDraws], shape: IRShape, device="cpu"
+    draws: Sequence, shape: IRShape, device="cpu"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One ``IRDraws`` per bank entry → the injected bank's (delays (B, 80),
     strengths (B, 80), noise (B, max(1, late_length))) tensors on ``device``
-    (``ir_synth_cuda.pack_draws``; more than 80 taps raise)."""
-    packed = pack_draws(shape, [d.delays for d in draws], [d.strengths for d in draws],
-                        [d.noise for d in draws])
-    return tuple(torch.from_numpy(a).to(device) for a in packed)
+    (``ir_synth_cuda.pack_draws``; more than 80 taps raise), copied without
+    a host sync (``ir_synth.to_device``)."""
+    packed = pack_draws(shape, *([np.asarray(getattr(d, f)) for d in draws]
+                                 for f in ("delays", "strengths", "noise")))
+    return tuple(to_device(a, device) for a in packed)

@@ -7,10 +7,10 @@ layout mapping (raytracer_studio.py:338-571), and optionally the meter.
 Tensors are channels-leading with an explicit batch dim, (B, C, N); the host
 wrappers keep the reference's (N, C) convention.
 
-All value scalars are derived on the host in float64 (``params``, shared
-with the JAX package) and enter as float32; the static branch decisions
-(EQ on, air on, early/late on) replicate the reference's host-visible skips
-(:312, :360, :369, :389).
+All value scalars are derived on the host in float64 (``params``, this
+package's copy of the JAX package's) and enter as float32; the static
+branch decisions (EQ on, air on, early/late on) replicate the reference's
+host-visible skips (:312, :360, :369, :389).
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from audio_raytracing_studio_tpu import config
-from audio_raytracing_studio_tpu.params import (
+from .. import config
+from ..ops import convolution, filters, ir_synth, spatial
+from ..ops.ir_synth_cuda import fused_rir_bank
+from ..params import (
     IRDraws,
     RenderParams,
     adapt_early_late_levels,
@@ -31,9 +33,6 @@ from audio_raytracing_studio_tpu.params import (
     dry_kill_factor,
     eq_enabled,
 )
-
-from ..ops import convolution, filters, ir_synth, spatial
-from ..ops.ir_synth_cuda import fused_rir_bank
 
 
 class MixScalars(NamedTuple):
@@ -430,12 +429,14 @@ def render(
         else:
             if draws is not None:
                 injected = convert.bank_draws([draws], setup.ir_shape, dev)
-                seeds = torch.zeros(1, dtype=torch.int32)
+                seeds = torch.zeros(1, dtype=torch.int32, device=dev)
             else:
                 injected = None
-                seeds = torch.from_numpy(ir_synth.seeds_to_int32([0 if seed is None else seed]))
+                seeds = ir_synth.to_device(
+                    ir_synth.seeds_to_int32([0 if seed is None else seed]), dev
+                )
             early_ir, late_ir = fused_rir_bank(
-                seeds.to(dev), setup.ir_shape, setup.ir_scalars, injected_draws=injected
+                seeds, setup.ir_shape, setup.ir_scalars, injected_draws=injected
             )
             out = internal_graph_with_irs(audio_t, early_ir, late_ir, mix, setup.spec)
     result = out[0].cpu().numpy().T

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from audio_raytracing_studio_tpu import config
+from .. import config
 
 
 def _air_ramp_np(n: int, rate: int) -> np.ndarray:

@@ -22,9 +22,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from audio_raytracing_studio_tpu import config
-from audio_raytracing_studio_tpu.params import IRGeometry
-
+from .. import config
+from ..params import IRGeometry
 from . import rng
 
 MAX_REFLECTIONS = config.REF_COUNT_CLIP[1]  # static tap budget (80)
@@ -82,9 +81,24 @@ class IRScalars(NamedTuple):
 
     def table(self, batch: int, device) -> torch.Tensor:
         """(B, 4) float32 table: 1−absorption, directionality, log_decay,
-        initial_amp — the layout the RIR bank takes."""
-        cols = [np.broadcast_to(np.asarray(x, np.float32), (batch,)) for x in self]
-        return torch.from_numpy(np.stack(cols, axis=1)).to(device)
+        initial_amp — the layout the RIR bank takes (``to_device``: no
+        synchronous copy to a card)."""
+        table = np.empty((batch, 4), np.float32)
+        for i, x in enumerate(self):
+            table[:, i] = x  # broadcasts a scalar
+        return to_device(table, device)
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A host array or tensor → a tensor on ``device``.  To a CUDA device it
+    goes through a pinned staging buffer (PyTorch's caching host allocator)
+    and an asynchronous copy on the current stream, so the host does not
+    wait for the card; a tensor already on ``device`` is returned as it is."""
+    t = torch.as_tensor(x)
+    device = torch.device(device)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def seed_to_u32(seed) -> int:

@@ -1,6 +1,6 @@
 """Fused RIR-bank synthesis — port of ``audio_raytracing_studio_tpu/ops/ir_synth_pallas.py``.
 
-The bank builds B (early, late) IR pairs in one launch, from one of two
+The bank builds B final (early, late) IR pairs in one call, from one of two
 sources of randomness:
 
 - **hash draws** (``fused_rir_bank`` → ``_hash_bank`` → ``_rir_block_kernel``
@@ -9,21 +9,23 @@ sources of randomness:
   ``synthesize`` path agree to float round-off;
 - **injected draws** (``fused_rir_bank(..., injected_draws=...)`` →
   ``_injected_bank`` → ``_rir_bank_kernel`` in JAX): explicit delays,
-  strengths and noise (``pack_draws``), the oracle-parity path.
+  strengths and noise (``pack_draws``), the oracle-parity path, with
+  ``synthesize``'s raw-noise fallback for degenerate smoothing.
 
-Each source has two producers of the raw IRs and per-tile stats:
+Each source has two producers of the final IRs:
 
 - the hand-written CUDA kernels of ``csrc/rir_bank.cu`` (route: nvcc →
   ctypes), ``_rir_block_cuda`` and ``_rir_bank_cuda``, launched for CUDA
-  tensors;
-- their plain PyTorch versions ``_rir_block_plain`` and ``_rir_bank_plain``
-  over (B, n_tiles, TILE), used for CPU tensors and as the kernels'
-  reference.
+  tensors: a stats pass and a write pass that applies the normalizations
+  itself, two launches per call and no host sync;
+- their plain PyTorch versions ``_rir_block_plain`` and ``_rir_bank_plain``,
+  used for CPU tensors and as the kernels' reference: the raw IRs and
+  per-tile stats over (B, n_tiles, TILE), then ``_entry_scales`` (the
+  Chan-combined variance restore and the 0.9 / 0.7 peaks, one scale per
+  entry), the epilogue the JAX package runs after its kernel.
 
-All feed ``_finalize_bank`` (plain torch), which Chan-combines the per-tile
-moments and folds the variance restore and the 0.9/0.7 peak normalizations
-into one scale per entry.  A CUDA tensor never takes a plain path: the
-kernel launches or the call raises.
+A CUDA tensor never takes a plain path: the kernels launch or the call
+raises.
 """
 
 from __future__ import annotations
@@ -35,17 +37,18 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from audio_raytracing_studio_tpu import config
-
+from .. import config
 from . import rng
-from .ir_synth import MAX_REFLECTIONS, IRScalars, IRShape, early_tap_amps
+from .ir_synth import MAX_REFLECTIONS, IRScalars, IRShape, early_tap_amps, to_device
 
 TILE = 4096  # samples per tile; csrc/rir_bank.cu kTile must match
 N_STATS = 8  # per-(entry, tile) partials — see csrc/rir_bank.cu
+MAX_SMOOTH_WIDTH = config.NOISE_SMOOTH_CLIP[1]  # csrc/rir_bank.cu kMaxWidth
 
-# Launches of each CUDA kernel in this process; the plain paths never count.
-launch_count = 0  # rir_bank_kernel (hash draws)
-injected_launch_count = 0  # rir_bank_injected_kernel (injected draws)
+# Bank calls that launched the CUDA kernels in this process (one per call,
+# both passes together); the plain paths never count.
+launch_count = 0  # hash draws
+injected_launch_count = 0  # injected draws
 
 
 def n_tiles(shape: IRShape) -> int:
@@ -59,7 +62,10 @@ def _bank_plain(scal, shape: IRShape, batch: int, taps, noise_at, with_raw_tail=
 
     taps: ``(delays, strengths)`` (B, MAX_REFLECTIONS) or None;
     noise_at(idx): noise at tail indices idx (1, P) int64 → (B or 1, P),
-    zero outside [0, late_length).
+    zero outside [0, late_length).  Stats slots, as the kernels' stats pass
+    writes them: noise sum, noise centered M2, smoothed sum, smoothed
+    centered M2, max|early|, max|late|, valid count, max|raw tail| (0
+    without ``with_raw_tail``).
     """
     device = scal.device
     nblk = n_tiles(shape)
@@ -124,17 +130,19 @@ def _bank_plain(scal, shape: IRShape, batch: int, taps, noise_at, with_raw_tail=
             stats[..., slot + 1] = (dev * dev).sum(-1)  # centered M2
         stats[..., 5] = late.reshape(tiles).abs().amax(-1)
         stats[..., 6] = n_b
+        if raw_tail is not None:
+            stats[..., 7] = raw_tail.reshape(tiles).abs().amax(-1)
     stats[..., 4] = early.reshape(tiles).abs().amax(-1)
     length = shape.length
     raw_tail = None if raw_tail is None else raw_tail[:, :length]
     return early[:, :length], late[:, :length], stats, raw_tail
 
 
-def _rir_block_plain(
+def _hash_bank_raw(
     seeds: torch.Tensor, scal: torch.Tensor, shape: IRShape
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``rir_bank_kernel`` (hash draws) → raw early,
-    late (B, length) and stats (B, n_tiles, 8)."""
+    """Raw early, late (B, length) and stats (B, n_tiles, 8) of the hash
+    source, before any scale (what the kernels' stats pass summarizes)."""
     seed64 = seeds.to(torch.int64)[:, None]
     taps = None
     if shape.early_taps_active:
@@ -156,20 +164,9 @@ def _rir_block_plain(
     return early, late, stats
 
 
-def _rir_bank_plain(
-    delays: torch.Tensor,
-    strengths: torch.Tensor,
-    noise: torch.Tensor,
-    scal: torch.Tensor,
-    shape: IRShape,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of ``rir_bank_injected_kernel`` (injected draws,
-    ``pack_draws`` layout) → raw early, late (B, length), stats (B, n_tiles, 8).
-
-    Includes the kernel's degenerate-smoothing rule: an entry whose smoothed
-    tail has std ≤ 1e-6 gets the raw noise tail, its per-tile max|tail|
-    re-taken, and slot 7 of tile 0 set to 1 (``synthesize``'s fallback).
-    """
+def _injected_bank_raw(delays, strengths, noise, scal, shape: IRShape):
+    """Raw early, late (B, length), stats (B, n_tiles, 8) and the raw-noise
+    tail (B, length) of the injected source (``pack_draws`` layout)."""
     batch = delays.shape[0]
     padded = torch.nn.functional.pad(noise, (0, 1))  # column late_length.. reads 0
     last = padded.shape[1] - 1
@@ -180,22 +177,88 @@ def _rir_bank_plain(
         return torch.gather(padded, 1, col)
 
     taps = (delays.to(torch.int64), strengths) if shape.early_taps_active else None
-    early, late, stats, raw_tail = _bank_plain(
-        scal, shape, batch, taps, noise_at, with_raw_tail=True
-    )
+    return _bank_plain(scal, shape, batch, taps, noise_at, with_raw_tail=True)
+
+
+def _smoothing_active(shape: IRShape) -> bool:
+    w = shape.noise_smooth_width
+    return shape.late_length > 0 and w > 1 and shape.late_length >= w
+
+
+def _tail_stds(stats: torch.Tensor, shape: IRShape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(std of the raw noise, std of the smoothed noise) over the tail, per
+    entry, Chan-combining the per-tile centered moments:
+    var = (Σ M2_b + Σ n_b·(mean_b − mean)²)/n."""
+    n = float(shape.late_length)
+    n_b = stats[:, :, 6]  # valid tail samples per tile (Σ = late_length)
+
+    def _std(sums, m2s):
+        mean = sums.sum(dim=1) / n
+        mean_b = sums / n_b.clamp(min=1.0)
+        between = (n_b * (mean_b - mean[:, None]).square()).sum(dim=1)
+        return ((m2s.sum(dim=1) + between) / n).clamp(min=0.0).sqrt()
+
+    return _std(stats[:, :, 0], stats[:, :, 1]), _std(stats[:, :, 2], stats[:, :, 3])
+
+
+def _entry_scales(stats: torch.Tensor, shape: IRShape, fallback: bool):
+    """Global normalizations from per-tile partials (ref :289-290, :299-303)
+    → (early_scale, late_scale, raw) per entry, as the kernels' write pass
+    derives them.
+
+    Scalar factors commute with |·| maxima, so the smoothing variance
+    restore (std_raw/std_smooth) and the 0.9/0.7 peak normalizations fold
+    into one multiplier per entry.  With ``fallback`` (injected draws) an
+    entry whose smoothed tail has std ≤ 1e-6 is ``raw``: its tail is the raw
+    noise, peak-normalized by slot 7, with no variance restore.
+    """
+    max_e = stats[:, :, 4].amax(dim=1)
+    max_t = stats[:, :, 5].amax(dim=1)
+    raw = torch.zeros_like(max_t, dtype=torch.bool)
+    c = torch.ones_like(max_t)
     if _smoothing_active(shape):
-        std_s = _tail_stds(stats, shape)[1]
-        raw = ~(std_s > 1e-6)  # (B,)
-        if bool(raw.any()):
-            late = torch.where(raw[:, None], raw_tail, late)
-            nblk = stats.shape[1]
-            per_tile = torch.nn.functional.pad(late, (0, nblk * TILE - shape.length))
-            stats[:, :, 5] = torch.where(
-                raw[:, None], per_tile.reshape(batch, nblk, TILE).abs().amax(-1),
-                stats[:, :, 5],
-            )
-            stats[:, 0, 7] = raw.to(torch.float32)
-    return early, late, stats
+        std_n, std_s = _tail_stds(stats, shape)
+        restore = std_s > 1e-6
+        c = torch.where(restore, std_n / std_s, 1.0)
+        if fallback:
+            raw = ~restore
+            max_t = torch.where(raw, stats[:, :, 7].amax(dim=1), max_t)
+    late_peak = max_t * c
+    late_scale = c * torch.where(late_peak > 1e-6, config.LATE_NORM_PEAK / late_peak, 1.0)
+    early_scale = torch.where(max_e > 1e-6, config.EARLY_NORM_PEAK / max_e, 1.0)
+    return early_scale, late_scale, raw
+
+
+def _finalize_bank(early_raw, late_raw, stats, shape: IRShape):
+    """Raw IRs and stats → final early, late (no raw-noise fallback: the
+    hash source's epilogue, ``_finalize_bank`` in the JAX package)."""
+    early_scale, late_scale, _ = _entry_scales(stats, shape, fallback=False)
+    return early_raw * early_scale[:, None], late_raw * late_scale[:, None]
+
+
+def _rir_block_plain(
+    seeds: torch.Tensor, scal: torch.Tensor, shape: IRShape
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the hash-draws kernels → final early, late
+    (B, length)."""
+    return _finalize_bank(*_hash_bank_raw(seeds, scal, shape), shape)
+
+
+def _rir_bank_plain(
+    delays: torch.Tensor,
+    strengths: torch.Tensor,
+    noise: torch.Tensor,
+    scal: torch.Tensor,
+    shape: IRShape,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the injected-draws kernels (``pack_draws``
+    layout) → final early, late (B, length) and the (B,) bool flags of the
+    entries that kept their raw noise (``synthesize``'s fallback)."""
+    early, late, stats, raw_tail = _injected_bank_raw(delays, strengths, noise, scal, shape)
+    early_scale, late_scale, raw = _entry_scales(stats, shape, fallback=True)
+    if raw_tail is not None:
+        late = torch.where(raw[:, None], raw_tail, late)
+    return early * early_scale[:, None], late * late_scale[:, None], raw
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,17 +270,39 @@ def _launcher():
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 5  # seeds, scal, early, late, stats
-        + [ctypes.c_int] * 9  # batch, tile, the seven IRShape ints
+        + [ctypes.c_int] * 10  # batch, tile, the seven IRShape ints, unit_scales
         + [ctypes.c_float] * 3  # strength lo, strength span, delay decay exp
         + [ctypes.c_void_p]  # cudaStream_t
     )
     return fn
 
 
+def _outputs(batch: int, shape: IRShape, device):
+    """early, late (B, length) and the stats scratch (B, n_tiles, 8): views
+    of one allocation, each starting on a 16-byte boundary."""
+    span = -(-batch * shape.length // 4) * 4
+    n_stats = batch * n_tiles(shape) * N_STATS
+    buf = torch.empty(2 * span + n_stats, dtype=torch.float32, device=device)
+    early = buf[: batch * shape.length].view(batch, shape.length)
+    late = buf[span: span + batch * shape.length].view(batch, shape.length)
+    stats = buf[2 * span:].view(batch, n_tiles(shape), N_STATS)
+    return early, late, stats
+
+
+def _check_width(shape: IRShape) -> None:
+    if shape.noise_smooth_width > MAX_SMOOTH_WIDTH:
+        raise ValueError(
+            f"the CUDA bank smooths at most {MAX_SMOOTH_WIDTH} taps "
+            f"(config.NOISE_SMOOTH_CLIP), got {shape.noise_smooth_width}"
+        )
+
+
 def _rir_block_cuda(
-    seeds: torch.Tensor, scal: torch.Tensor, shape: IRShape
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch csrc/rir_bank.cu → raw early, late (B, length), stats (B, n_tiles, 8)."""
+    seeds: torch.Tensor, scal: torch.Tensor, shape: IRShape, unit_scales: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the hash-draws bank of csrc/rir_bank.cu (stats pass, then write
+    pass) → final early, late (B, length).  ``unit_scales`` (checks only)
+    writes the samples before the per-entry scales."""
     global launch_count
     if seeds.device.type != "cuda" or scal.device != seeds.device:
         raise ValueError(
@@ -231,11 +316,10 @@ def _rir_block_cuda(
         raise ValueError(f"scalars must be (B, 4) float32, got {tuple(scal.shape)} {scal.dtype}")
     if not (seeds.is_contiguous() and scal.is_contiguous()):
         raise ValueError("seeds and scalars must be contiguous")
+    _check_width(shape)
     launch = _launcher()
     device = seeds.device
-    early = torch.empty((batch, shape.length), dtype=torch.float32, device=device)
-    late = torch.empty_like(early)
-    stats = torch.empty((batch, n_tiles(shape), N_STATS), dtype=torch.float32, device=device)
+    early, late, stats = _outputs(batch, shape, device)
     lo, hi = config.EARLY_STRENGTH_RANGE
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -244,13 +328,13 @@ def _rir_block_cuda(
             stats.data_ptr(), batch, TILE, shape.length, shape.split_point,
             shape.actual_max_early_delay, shape.reflection_count,
             shape.late_length, shape.noise_smooth_width,
-            int(shape.early_taps_active), lo, float(np.float32(hi - lo)),
+            int(shape.early_taps_active), int(unit_scales), lo, float(np.float32(hi - lo)),
             config.EARLY_DELAY_DECAY_EXP, stream,
         )
     if err != 0:
         raise RuntimeError(f"rir_bank launch failed with CUDA error {err}")
     launch_count += 1
-    return early, late, stats
+    return early, late
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,8 +347,8 @@ def _injected_launcher():
     fn.argtypes = (
         [ctypes.c_void_p] * 3  # delays, strengths, noise
         + [ctypes.c_int]  # noise row stride
-        + [ctypes.c_void_p] * 5  # scal, early, late, stats, done
-        + [ctypes.c_int] * 9  # batch, tile, the seven IRShape ints
+        + [ctypes.c_void_p] * 5  # scal, early, late, stats, raw flags
+        + [ctypes.c_int] * 10  # batch, tile, the seven IRShape ints, unit_scales
         + [ctypes.c_float]  # delay decay exp
         + [ctypes.c_void_p]  # cudaStream_t
     )
@@ -277,9 +361,12 @@ def _rir_bank_cuda(
     noise: torch.Tensor,
     scal: torch.Tensor,
     shape: IRShape,
+    unit_scales: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``rir_bank_injected_kernel`` → raw early, late (B, length),
-    stats (B, n_tiles, 8)."""
+    """Launch the injected-draws bank (stats pass, then write pass) → final
+    early, late (B, length) and, for checks, the (B,) bool flags of the
+    entries that kept their raw noise.  ``unit_scales`` (checks only)
+    writes the samples before the per-entry scales."""
     global injected_launch_count
     device = delays.device
     batch = delays.shape[0]
@@ -304,69 +391,24 @@ def _rir_bank_cuda(
         )
     if not all(x.is_contiguous() for x in (delays, strengths, noise, scal)):
         raise ValueError("delays, strengths, noise and scalars must be contiguous")
+    _check_width(shape)
     launch = _injected_launcher()
-    early = torch.empty((batch, shape.length), dtype=torch.float32, device=device)
-    late = torch.empty_like(early)
-    stats = torch.empty((batch, n_tiles(shape), N_STATS), dtype=torch.float32, device=device)
-    done = torch.zeros((batch,), dtype=torch.int32, device=device)
+    early, late, stats = _outputs(batch, shape, device)
+    raw = torch.empty((batch,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = launch(
             delays.data_ptr(), strengths.data_ptr(), noise.data_ptr(), noise.shape[1],
             scal.data_ptr(), early.data_ptr(), late.data_ptr(), stats.data_ptr(),
-            done.data_ptr(), batch, TILE, shape.length, shape.split_point,
+            raw.data_ptr(), batch, TILE, shape.length, shape.split_point,
             shape.actual_max_early_delay, shape.reflection_count, shape.late_length,
-            shape.noise_smooth_width, int(shape.early_taps_active),
+            shape.noise_smooth_width, int(shape.early_taps_active), int(unit_scales),
             config.EARLY_DELAY_DECAY_EXP, stream,
         )
     if err != 0:
         raise RuntimeError(f"rir_bank_injected launch failed with CUDA error {err}")
     injected_launch_count += 1
-    return early, late, stats
-
-
-def _smoothing_active(shape: IRShape) -> bool:
-    w = shape.noise_smooth_width
-    return shape.late_length > 0 and w > 1 and shape.late_length >= w
-
-
-def _tail_stds(stats: torch.Tensor, shape: IRShape) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(std of the raw noise, std of the smoothed noise) over the tail, per
-    entry, Chan-combining the per-tile centered moments:
-    var = (Σ M2_b + Σ n_b·(mean_b − mean)²)/n."""
-    n = float(shape.late_length)
-    n_b = stats[:, :, 6]  # valid tail samples per tile (Σ = late_length)
-
-    def _std(sums, m2s):
-        mean = sums.sum(dim=1) / n
-        mean_b = sums / n_b.clamp(min=1.0)
-        between = (n_b * (mean_b - mean[:, None]).square()).sum(dim=1)
-        return ((m2s.sum(dim=1) + between) / n).clamp(min=0.0).sqrt()
-
-    return _std(stats[:, :, 0], stats[:, :, 1]), _std(stats[:, :, 2], stats[:, :, 3])
-
-
-def _finalize_bank(early_raw, late_raw, stats, shape: IRShape):
-    """Global normalizations from per-tile partials (ref :289-290, :299-303).
-
-    Scalar factors commute with |·| maxima, so the smoothing variance
-    restore (std_raw/std_smooth) and the 0.9/0.7 peak normalizations fold
-    into one per-entry multiplier.  Slot 7 of tile 0 marks an injected entry
-    whose tail fell back to raw noise: it gets no variance restore.
-    """
-    max_e = stats[:, :, 4].amax(dim=1)
-    max_t = stats[:, :, 5].amax(dim=1)
-    if _smoothing_active(shape):
-        std_n, std_s = _tail_stds(stats, shape)
-        c = torch.where(std_s > 1e-6, std_n / std_s, 1.0)
-        c = torch.where(stats[:, 0, 7] > 0, 1.0, c)
-    else:
-        c = torch.ones_like(max_t)
-
-    late_peak = max_t * c
-    late_scale = c * torch.where(late_peak > 1e-6, config.LATE_NORM_PEAK / late_peak, 1.0)
-    early_scale = torch.where(max_e > 1e-6, config.EARLY_NORM_PEAK / max_e, 1.0)
-    return early_raw * early_scale[:, None], late_raw * late_scale[:, None]
+    return early, late, raw.bool()
 
 
 def pack_draws(
@@ -408,11 +450,12 @@ def fused_rir_bank(
 
     seeds: (B,) int32 tensor — one counter-based stream per entry (use
     ``ir_synth.seeds_to_int32`` for seeds ≥ 2^31; ignored with
-    ``injected_draws``); its device picks the producer: the CUDA kernel for
-    a CUDA tensor, the plain version for a CPU tensor.  scalars: IRScalars
-    of scalars or (B,) arrays (broadcast).  injected_draws: the
-    ``pack_draws`` triple (arrays or tensors) — explicit randomness, any IR
-    length.
+    ``injected_draws``); its device picks the producer: the CUDA kernels for
+    a CUDA tensor, whose output is returned as it is, the plain version for
+    a CPU tensor.  scalars: IRScalars of scalars or (B,) arrays (broadcast).
+    injected_draws: the ``pack_draws`` triple (arrays or tensors) — explicit
+    randomness, any IR length.  Host arrays reach the card through pinned
+    buffers, without a synchronous copy.
     """
     batch = seeds.shape[0]
     device = seeds.device
@@ -420,11 +463,11 @@ def fused_rir_bank(
         raise ValueError(f"fused_rir_bank runs on cuda or cpu tensors, not {device}")
     scal = scalars.table(batch, device)
     if injected_draws is not None:
-        d, s, n = (torch.as_tensor(x, device=device).contiguous() for x in injected_draws)
+        d, s, n = (to_device(x, device).contiguous() for x in injected_draws)
         producer = _rir_bank_cuda if device.type == "cuda" else _rir_bank_plain
-        raw = producer(d.to(torch.int32), s.to(torch.float32), n.to(torch.float32), scal, shape)
-    elif device.type == "cuda":
-        raw = _rir_block_cuda(seeds.contiguous(), scal, shape)
-    else:
-        raw = _rir_block_plain(seeds, scal, shape)
-    return _finalize_bank(*raw, shape)
+        early, late, _ = producer(d.to(torch.int32), s.to(torch.float32),
+                                  n.to(torch.float32), scal, shape)
+        return early, late
+    if device.type == "cuda":
+        return _rir_block_cuda(seeds.contiguous(), scal, shape)
+    return _rir_block_plain(seeds, scal, shape)

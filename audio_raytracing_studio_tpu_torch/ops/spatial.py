@@ -12,7 +12,7 @@ from typing import List
 
 import torch
 
-from audio_raytracing_studio_tpu import config
+from .. import config
 
 
 def pan_matrix(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -17,13 +17,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from audio_raytracing_studio_tpu.metering import kweighting as kw
-from audio_raytracing_studio_tpu.params import RenderParams, eq_enabled
-
+from ..metering import kweighting as kw
 from ..metering import loudness
 from ..models import pipeline
 from ..ops import ir_synth
 from ..ops.ir_synth_cuda import fused_rir_bank
+from ..params import RenderParams, eq_enabled
 
 IR_BACKENDS = ("bank", "jnp")
 
@@ -217,7 +216,7 @@ def render_batch(
         ir_length = spec.ir_length
         out = _batched_internal(
             audio_t,
-            torch.from_numpy(ir_synth.seeds_to_int32(seeds)).to(dev),
+            ir_synth.to_device(ir_synth.seeds_to_int32(seeds), dev),
             ir_synth.IRScalars.stack([s.ir_scalars for s in setups]),
             pipeline.MixScalars.stack([s.mix_scalars for s in setups], dev),
             shape0,

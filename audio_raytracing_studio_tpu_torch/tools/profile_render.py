@@ -4,8 +4,9 @@
 
 On the ``bench.py`` configuration (Room hall, Stereo, EQ off, 48 kHz) it
 times, for each filter mode, every stage of ``sharding._batched_internal``
-alone with CUDA events on device-resident inputs — the IR bank, the conv
-FFTs, the exact-length air filter, the back half (mix, normalizes, pan,
+alone with CUDA events on device-resident inputs — the IR bank (whole, then
+split into its two kernel launches and the upload of its (B, 4) scalar
+table), the conv FFTs, the exact-length air filter, the back half (mix, normalizes, pan,
 layout) — then the whole render, the meter's stages on its output (the
 K-weighting FIR, the float64 block energies, the gates, peak and RMS), and
 runs one render and one meter pass under ``torch.profiler`` for the kernel
@@ -89,6 +90,7 @@ def stage_times(clips: np.ndarray, fast: bool) -> dict:
     from audio_raytracing_studio_tpu_torch import RenderParams
     from audio_raytracing_studio_tpu_torch.models import pipeline
     from audio_raytracing_studio_tpu_torch.ops import convolution, filters, ir_synth
+    from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda
     from audio_raytracing_studio_tpu_torch.ops.ir_synth_cuda import fused_rir_bank
     from audio_raytracing_studio_tpu_torch.parallel import sharding
 
@@ -108,7 +110,12 @@ def stage_times(clips: np.ndarray, fast: bool) -> dict:
     early, late = fused_rir_bank(seeds, shape, ir_sc)
     kernels = torch.stack([early, late], dim=1)
     weights = torch.stack([mix.early_level, mix.late_level], dim=1)
-    stages = {"bank": event_ms(lambda: fused_rir_bank(seeds, shape, ir_sc))}
+    scal = ir_sc.table(batch, "cuda")
+    stages = {
+        "bank": event_ms(lambda: fused_rir_bank(seeds, shape, ir_sc)),
+        "bank_kernels": event_ms(lambda: ir_synth_cuda._rir_block_cuda(seeds, scal, shape)),
+        "bank_scalar_upload": event_ms(lambda: ir_sc.table(batch, "cuda")),
+    }
     if fast:
         nfft = convolution.fast_fft_length(max(len_out, n_in + shape.length - 1))
         air = filters.air_absorption_gain(nfft, RATE, mix.air_absorption)

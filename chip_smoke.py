@@ -18,12 +18,14 @@ Phases, one line each:
 
 1. environment: torch/CUDA versions, card name and power limit, TF32 off;
 2. build: compiles ``csrc/rir_bank.cu`` (both launchers) with nvcc;
-3. bank check: the hash-draws kernel against its plain PyTorch version on
-   the card (bench shape with seeds ≥ 2^31; a multi-tile Cathedral IR);
-3b. injected bank check: the injected-draws kernel against its plain version
-   (bench shape B=48, each entry its own draws; Cathedral 346,809 samples;
-   split_point 1 at length 4096; a degenerate-smoothing entry), one counted
-   launch per call;
+3. bank check: the hash-draws kernels' final IRs against their plain
+   PyTorch version's on the card (bench shape with seeds ≥ 2^31; a
+   multi-tile Cathedral IR of odd length; split_point 1 at B=1), one counted
+   call (stats pass + write pass) per bank call;
+3b. injected bank check: the same for the injected-draws kernels (bench
+   shape B=48, each entry its own draws; Cathedral 346,809 samples;
+   split_point 1 at length 4096; a degenerate-smoothing entry, flagged by
+   kernel and plain version alike);
 4. main path: fast and exact renders, one kernel launch each, output
    checks, clips 0 and 47 against the port's plain path on the CPU, PCM16;
 4b. parity path: BASELINE configs 1-5 on one 60 s clip (1 and 3 also in
@@ -35,9 +37,15 @@ Phases, one line each:
    on the trimmed output;
 5. timing: realtime factor of both modes, unmetered and metered, on
    device-resident inputs (settle, then the median of 3); the meter alone;
-   both kernels' times beside their plain versions' (CUDA events).
+   both banks: their kernels' device time (torch.profiler), the wrapper
+   calls, ``fused_rir_bank`` whole (scalar upload included) and the scalar
+   upload alone beside the plain versions (CUDA events, in turns plain,
+   kernel, kernel, plain), at the bench shape, at B=1 and at the Cathedral
+   shape (its injected noise overflows the 50 MB L2).
 
-Then one JSON line listing the kernels, the card's name and power limit, and
+Then one JSON line listing the kernels (each with its bound at this run's
+shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
+H100 SXM's published rates), the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises: the
 exit code is non-zero and no result line is printed.  Without a CUDA device,
 or without the rest of the checkout, it exits non-zero at once.
@@ -60,6 +68,8 @@ BANK_TOL = 2e-5  # kernel vs plain bank on the card: float round-off (sum order,
 RENDER_TOL = 1e-4  # card vs CPU render: cuFFT vs pocketFFT float32 over 3·2^20 and 2,951,999 points
 LU_TOL = 0.01  # card vs CPU meter, masked vs trimmed (PARITY.md item 2's bound)
 DB_TOL = 0.01  # sample peak and RMS, dB
+PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+PEAK_F32_S = 67e12  # float32 outside the tensor cores, same source
 
 
 class SmokeFailure(RuntimeError):
@@ -109,6 +119,64 @@ def settled_wall(torch, fn, settle_max: int = 12, samples: int = 3):
             break
     runs = sorted(once() for _ in range(samples))
     return runs[len(runs) // 2], settle, runs
+
+
+def bank_bound(shape, batch: int, injected: bool) -> dict:
+    """The least time the card could take for one bank call at this shape:
+    the bytes it must move (each input read once, each output written once)
+    over the memory rate against its operations over the float32 rate —
+    per late sample the w-tap sum, the mean, the envelope (one multiply, one
+    expf counted as one operation) and three scale multiplies, plus for hash
+    draws one lowbias32 (12 integer operations, counted at the same rate)."""
+    late = batch * shape.late_length
+    nbytes = 8 * batch * shape.length + 16 * batch  # early + late out, the scalar table in
+    if injected:
+        nbytes += 8 * batch * 80 + 4 * batch * max(1, shape.late_length) + 4 * batch
+    else:
+        nbytes += 4 * batch  # seeds
+    ops = late * (shape.noise_smooth_width + 6) + (0 if injected else 12 * late)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def device_ms(torch, fn, iters: int = 20) -> dict:
+    """Device time per call of each bank kernel ``fn`` launches, by name
+    (torch.profiler's CUDA activity), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per = {}
+    for _ in range(3):  # a profiling window now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            for name in ("bank_stats_kernel", "bank_write_kernel"):
+                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
+                    per[name] = per.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        if per:
+            break
+    check(len(per) == 2, f"the profiler saw the bank kernels {sorted(per)} on the device")
+    return {"ms": per["bank_stats_kernel"] + per["bank_write_kernel"],
+            "stats_pass_ms": per["bank_stats_kernel"], "write_pass_ms": per["bank_write_kernel"]}
+
+
+def turns(torch, kernel_fn, plain_fn, kernel_iters=50, plain_iters=10):
+    """Device times of a kernel and its plain version in turns (plain,
+    kernel, kernel, plain) after a warm-up → (kernel ms, plain ms, runs)."""
+    for fn in (kernel_fn, plain_fn):
+        fn()
+    torch.cuda.synchronize()
+    plain_a = cuda_ms(torch, plain_fn, plain_iters)
+    kernel_a = cuda_ms(torch, kernel_fn, kernel_iters)
+    kernel_b = cuda_ms(torch, kernel_fn, kernel_iters)
+    plain_b = cuda_ms(torch, plain_fn, plain_iters)
+    return ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2,
+            {"plain": [plain_a, plain_b], "kernel": [kernel_a, kernel_b]})
 
 
 def injected_draws(bank, shape, batch: int, seed: int, degenerate=()):
@@ -314,33 +382,35 @@ def main() -> int:
     cathedral = pipeline.build_internal_setup(
         RenderParams(hall_type="Cathedral", room_size=600.0), RATE, n_in
     )
-    bank_err = 0.0
-    for label, setup, seeds in (
-        ("bench", bench_setup, list(range(BATCH)) + [2**31, 0xFFFFFFFF]),
-        ("cathedral", cathedral, [0, 7, 2**31, 0xFFFFFFFF]),
-    ):
-        shape = setup.ir_shape
-        seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds)).cuda()
-        scal = setup.ir_scalars.table(len(seeds), "cuda")
-        before = bank.launch_count
-        kern = bank._finalize_bank(*bank._rir_block_cuda(seeds_t, scal, shape), shape)
-        plain = bank._finalize_bank(*bank._rir_block_plain(seeds_t, scal, shape), shape)
-        torch.cuda.synchronize()
-        check(bank.launch_count == before + 1, "bank kernel launch was not counted")
-        errs = [(k - q).abs().max().item() for k, q in zip(kern, plain)]
-        check(all(np.isfinite(errs)) and max(errs) <= BANK_TOL,
-              f"{label} bank kernel vs plain {errs} > {BANK_TOL}")
-        bank_err = max(bank_err, *errs)
-        print(f"[3 bank] {label}: B={len(seeds)} length={shape.length} tiles="
-              f"{bank.n_tiles(shape)} max-abs early {errs[0]:.3e} late {errs[1]:.3e} "
-              f"(tol {BANK_TOL})", flush=True)
-
-    # --- 3b. injected bank check: kernel vs plain on the card ---
     # tests/test_pallas_rir.py's wrap regression: the tail starts at sample 1
     # and the length is one whole tile, so the smoothing halo crosses both edges
     split1 = ir_synth.IRShape(length=4096, split_point=1, actual_max_early_delay=1,
                               reflection_count=25, late_length=4095, noise_smooth_width=10,
                               early_taps_active=False)
+    bank_err = 0.0
+    for label, shape, ir_sc, seeds in (
+        ("bench", bench_setup.ir_shape, bench_setup.ir_scalars,
+         list(range(BATCH)) + [2**31, 0xFFFFFFFF]),
+        ("cathedral", cathedral.ir_shape, cathedral.ir_scalars, [0, 7, 2**31, 0xFFFFFFFF]),
+        ("split1", split1, bench_setup.ir_scalars, [2**31 + 5]),
+    ):
+        seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds)).cuda()
+        scal = ir_sc.table(len(seeds), "cuda")
+        before = bank.launch_count
+        kern = bank._rir_block_cuda(seeds_t, scal, shape)
+        plain = bank._rir_block_plain(seeds_t, scal, shape)
+        torch.cuda.synchronize()
+        check(bank.launch_count == before + 1, "bank call was not counted once")
+        errs = [(k - q).abs().max().item() for k, q in zip(kern, plain)]
+        check(all(np.isfinite(errs)) and max(errs) <= BANK_TOL,
+              f"{label} bank kernel vs plain {errs} > {BANK_TOL}")
+        bank_err = max(bank_err, *errs)
+        print(f"[3 bank] {label}: B={len(seeds)} length={shape.length} split="
+              f"{shape.split_point} tiles="
+              f"{bank.n_tiles(shape)} max-abs early {errs[0]:.3e} late {errs[1]:.3e} "
+              f"(tol {BANK_TOL})", flush=True)
+
+    # --- 3b. injected bank check: kernel vs plain on the card ---
     injected_err = 0.0
     for label, shape, ir_sc, batch, degenerate in (
         ("bench", bench_setup.ir_shape, bench_setup.ir_scalars, BATCH, ()),
@@ -351,16 +421,15 @@ def main() -> int:
         packed = injected_draws(bank, shape, batch, seed=batch, degenerate=degenerate)
         scal = ir_sc.table(batch, "cuda")
         before = bank.injected_launch_count
-        raw_k = bank._rir_bank_cuda(*packed, scal, shape)
-        raw_p = bank._rir_bank_plain(*packed, scal, shape)
+        *kern, raw_k = bank._rir_bank_cuda(*packed, scal, shape)
+        *plain, raw_p = bank._rir_bank_plain(*packed, scal, shape)
         torch.cuda.synchronize()
         check(bank.injected_launch_count == before + 1,
-              "injected kernel launch was not counted once")
-        flags_k = raw_k[2][:, 0, 7].nonzero().flatten().tolist()
-        check(flags_k == raw_p[2][:, 0, 7].nonzero().flatten().tolist() == list(degenerate),
+              "injected bank call was not counted once")
+        flags_k = raw_k.nonzero().flatten().tolist()
+        check(flags_k == raw_p.nonzero().flatten().tolist() == list(degenerate),
               f"{label}: raw-noise fallback entries {flags_k}, expected {list(degenerate)}")
-        errs = [(k - q).abs().max().item() for k, q in zip(
-            bank._finalize_bank(*raw_k, shape), bank._finalize_bank(*raw_p, shape))]
+        errs = [(k - q).abs().max().item() for k, q in zip(kern, plain)]
         check(all(np.isfinite(errs)) and max(errs) <= BANK_TOL,
               f"{label} injected kernel vs plain {errs} > {BANK_TOL}")
         injected_err = max(injected_err, *errs)
@@ -465,40 +534,63 @@ def main() -> int:
                                           setup.spec)
     timing["meter_ms"] = cuda_ms(torch, lambda: loudness.audio_metrics(rendered, RATE), 5)
     del rendered
-    scal = bench_setup.ir_scalars.table(BATCH, "cuda")
     shape = bench_setup.ir_shape
-    kernel_fn = lambda: bank._rir_block_cuda(seeds_t, scal, shape)  # noqa: E731
-    plain_fn = lambda: bank._rir_block_plain(seeds_t, scal, shape)  # noqa: E731
-    for fn in (kernel_fn, plain_fn):  # warm-up
-        fn()
-    torch.cuda.synchronize()
-    plain_a = cuda_ms(torch, plain_fn, 10)
-    kernel_a = cuda_ms(torch, kernel_fn, 50)
-    kernel_b = cuda_ms(torch, kernel_fn, 50)
-    plain_b = cuda_ms(torch, plain_fn, 10)
-    timing["bank_kernel_ms"] = (kernel_a + kernel_b) / 2
-    timing["bank_plain_ms"] = (plain_a + plain_b) / 2
-    timing["bank_runs_ms"] = {"plain": [plain_a, plain_b], "kernel": [kernel_a, kernel_b]}
+    ir_sc = ir_synth.IRScalars.stack([bench_setup.ir_scalars] * BATCH)  # host (B,) arrays
+    scal = ir_sc.table(BATCH, "cuda")
+    # *_call_ms: CUDA events around back-to-back wrapper calls (host overhead
+    # included when it exceeds the kernels); *_device: the kernels alone
+    timing["bank_call_ms"], timing["bank_plain_ms"], timing["bank_runs_ms"] = turns(
+        torch, lambda: bank._rir_block_cuda(seeds_t, scal, shape),
+        lambda: bank._rir_block_plain(seeds_t, scal, shape))
+    timing["bank_device"] = device_ms(torch, lambda: bank._rir_block_cuda(seeds_t, scal, shape))
+    timing["bank_fused_ms"], timing["bank_fused_plain_ms"], _ = turns(
+        torch, lambda: bank.fused_rir_bank(seeds_t, shape, ir_sc),
+        lambda: bank._rir_block_plain(seeds_t, ir_sc.table(BATCH, "cuda"), shape))
+    timing["scalar_upload_ms"] = cuda_ms(torch, lambda: ir_sc.table(BATCH, "cuda"), 50)
     packed = injected_draws(bank, shape, BATCH, seed=11)
-    kernel_fn = lambda: bank._rir_bank_cuda(*packed, scal, shape)  # noqa: E731
-    plain_fn = lambda: bank._rir_bank_plain(*packed, scal, shape)  # noqa: E731
-    for fn in (kernel_fn, plain_fn):  # warm-up
-        fn()
-    torch.cuda.synchronize()
-    plain_a = cuda_ms(torch, plain_fn, 10)
-    kernel_a = cuda_ms(torch, kernel_fn, 50)
-    kernel_b = cuda_ms(torch, kernel_fn, 50)
-    plain_b = cuda_ms(torch, plain_fn, 10)
-    timing["injected_kernel_ms"] = (kernel_a + kernel_b) / 2
-    timing["injected_plain_ms"] = (plain_a + plain_b) / 2
-    timing["injected_runs_ms"] = {"plain": [plain_a, plain_b], "kernel": [kernel_a, kernel_b]}
+    timing["injected_call_ms"], timing["injected_plain_ms"], timing["injected_runs_ms"] = turns(
+        torch, lambda: bank._rir_bank_cuda(*packed, scal, shape),
+        lambda: bank._rir_bank_plain(*packed, scal, shape))
+    timing["injected_device"] = device_ms(
+        torch, lambda: bank._rir_bank_cuda(*packed, scal, shape))
+    timing["injected_fused_ms"] = cuda_ms(
+        torch, lambda: bank.fused_rir_bank(seeds_t, shape, ir_sc, injected_draws=packed), 50)
+    # B=1, the parity path's batch: 18 blocks, far under one wave
+    one = injected_draws(bank, shape, 1, seed=12)
+    scal1 = bench_setup.ir_scalars.table(1, "cuda")
+    timing["b1_bank_call_ms"], timing["b1_bank_plain_ms"], _ = turns(
+        torch, lambda: bank._rir_block_cuda(seeds_t[:1], scal1, shape),
+        lambda: bank._rir_block_plain(seeds_t[:1], scal1, shape))
+    timing["b1_bank_device"] = device_ms(
+        torch, lambda: bank._rir_block_cuda(seeds_t[:1], scal1, shape))
+    timing["b1_injected_call_ms"], timing["b1_injected_plain_ms"], _ = turns(
+        torch, lambda: bank._rir_bank_cuda(*one, scal1, shape),
+        lambda: bank._rir_bank_plain(*one, scal1, shape))
+    timing["b1_injected_device"] = device_ms(
+        torch, lambda: bank._rir_bank_cuda(*one, scal1, shape))
+    # the Cathedral shape at B=48: 66 MB of injected noise, more than the L2
+    cat_shape = cathedral.ir_shape
+    cat_scal = cathedral.ir_scalars.table(BATCH, "cuda")
+    cat_packed = injected_draws(bank, cat_shape, BATCH, seed=13)
+    timing["cathedral_bank_device"] = device_ms(
+        torch, lambda: bank._rir_block_cuda(seeds_t, cat_scal, cat_shape))
+    timing["cathedral_injected_device"] = device_ms(
+        torch, lambda: bank._rir_bank_cuda(*cat_packed, cat_scal, cat_shape))
+    del cat_packed
+    timing["bounds"] = {
+        "bench_hash": bank_bound(shape, BATCH, False),
+        "bench_injected": bank_bound(shape, BATCH, True),
+        "b1_hash": bank_bound(shape, 1, False),
+        "b1_injected": bank_bound(shape, 1, True),
+        "cathedral_hash": bank_bound(cat_shape, BATCH, False),
+        "cathedral_injected": bank_bound(cat_shape, BATCH, True),
+    }
     timing["parity_cpu_path_s"] = parity["cpu_s"]
     print("[5 timing] " + json.dumps(timing), flush=True)
 
-    check("jax" not in sys.modules, "jax was imported")
-    for name in ("ops", "models", "parallel", "metering.loudness", "oracle"):
-        check(f"audio_raytracing_studio_tpu.{name}" not in sys.modules,
-              f"the JAX package's {name} was imported")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
+    check(not foreign, f"JAX or the JAX package was imported: {foreign}")
 
     source = "audio_raytracing_studio_tpu_torch/csrc/rir_bank.cu"
     print(json.dumps({"kernels": [{
@@ -508,8 +600,11 @@ def main() -> int:
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
         "launches": main_launches,
         "max_abs_err": bank_err,
-        "ms": timing["bank_kernel_ms"],
+        "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],
+        "bound_ms": timing["bounds"]["bench_hash"]["bound_ms"],
+        "bound_by": timing["bounds"]["bench_hash"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the bank
     }, {
         "name": "rir_bank_injected",
         "route": "cuda",
@@ -517,8 +612,11 @@ def main() -> int:
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:318",
         "launches": injected_launches,
         "max_abs_err": injected_err,
-        "ms": timing["injected_kernel_ms"],
+        "ms": timing["injected_device"]["ms"],
         "plain_ms": timing["injected_plain_ms"],
+        "bound_ms": timing["bounds"]["bench_injected"]["bound_ms"],
+        "bound_by": timing["bounds"]["bench_injected"]["bound_by"],
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ SciPy only), so on the GPU machine it runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances: 2e-5 max-abs on the finalized IRs (peaks 0.9 / 0.7) — float
+Tolerances: 2e-5 max-abs on the final IRs (peaks 0.9 / 0.7) — float
 round-off of reductions summed in another order, and of expf/powf ulps;
+bit-equal for the smoothed noise itself (the kernels stage it in shared
+memory, the plain version re-hashes each tap: counter draws are order-free);
 against the oracle, the parity contract (PARITY.md, tests/test_parity.py):
 1e-3 max-abs, the PCM16 LSB rule, 0.01 LU, and 0.01 dB of peak and RMS.
 """
@@ -52,15 +54,12 @@ def test_bank_kernel_matches_plain(cuda, hall, room, rate):
     seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds)).to(cuda)
     scal = setup.ir_scalars.table(len(seeds), cuda)
     before = bank.launch_count
-    raw_k = bank._rir_block_cuda(seeds_t, scal, setup.ir_shape)
-    raw_p = bank._rir_block_plain(seeds_t, scal, setup.ir_shape)
+    fin_k = bank._rir_block_cuda(seeds_t, scal, setup.ir_shape)
+    fin_p = bank._rir_block_plain(seeds_t, scal, setup.ir_shape)
     torch.cuda.synchronize()
-    assert bank.launch_count == before + 1
-    assert raw_k[2].shape == raw_p[2].shape
-    assert torch.equal(raw_k[2][..., 6], raw_p[2][..., 6])  # valid counts are exact
-    fin_k = bank._finalize_bank(*raw_k, setup.ir_shape)
-    fin_p = bank._finalize_bank(*raw_p, setup.ir_shape)
+    assert bank.launch_count == before + 1  # one count per call, both passes
     for k, p in zip(fin_k, fin_p):
+        assert k.shape == p.shape == (len(seeds), setup.ir_shape.length)
         assert (k - p).abs().max().item() <= BANK_TOL
 
 
@@ -80,10 +79,9 @@ def test_render_batch_launches_kernel_once(cuda):
         assert float(np.abs(out - ref).max()) <= 1e-4
 
 
-def injected_inputs(setup, batch, seed, degenerate=()):
+def injected_inputs(shape, batch, seed, degenerate=()):
     """Seeded NumPy draws per entry in the injected bank's layout, on the card;
     entries in ``degenerate`` get ±1e-4 alternating noise (std(smoothed) ≤ 1e-6)."""
-    shape = setup.ir_shape
     rng = np.random.default_rng(seed)
     hi = max(2, shape.actual_max_early_delay)
     delays = rng.integers(1, hi, size=(batch, ir_synth.MAX_REFLECTIONS))
@@ -103,24 +101,23 @@ def injected_inputs(setup, batch, seed, degenerate=()):
 def test_injected_kernel_matches_plain(cuda, name, params, rate, batch, degenerate):
     setup = pipeline.build_internal_setup(params, rate, 100)
     shape = setup.ir_shape
-    packed = injected_inputs(setup, batch, 3, degenerate)
+    packed = injected_inputs(shape, batch, 3, degenerate)
     scal = setup.ir_scalars.table(batch, cuda)
     before = bank.injected_launch_count
-    raw_k = bank._rir_bank_cuda(*packed, scal, shape)
-    raw_p = bank._rir_bank_plain(*packed, scal, shape)
+    *fin_k, raw_k = bank._rir_bank_cuda(*packed, scal, shape)
+    *fin_p, raw_p = bank._rir_bank_plain(*packed, scal, shape)
     torch.cuda.synchronize()
     assert bank.injected_launch_count == before + 1
-    assert torch.equal(raw_k[2][..., 6], raw_p[2][..., 6])  # valid counts are exact
-    assert torch.equal(raw_k[2][:, 0, 7], raw_p[2][:, 0, 7])  # same fallback decisions
-    assert raw_k[2][:, 0, 7].nonzero().flatten().tolist() == list(degenerate)
-    for k, p in zip(bank._finalize_bank(*raw_k, shape), bank._finalize_bank(*raw_p, shape)):
+    assert torch.equal(raw_k, raw_p)  # same fallback decisions
+    assert raw_k.nonzero().flatten().tolist() == list(degenerate)
+    for k, p in zip(fin_k, fin_p):
         assert (k - p).abs().max().item() <= BANK_TOL
 
 
 def test_injected_kernel_split_point_one(cuda):
     """split_point 1, length 4096: the tail starts at sample 1 and its
     smoothing halo reaches past both tile edges."""
-    from audio_raytracing_studio_tpu.params import derive_ir_geometry
+    from audio_raytracing_studio_tpu_torch.params import derive_ir_geometry
 
     g = derive_ir_geometry(16000, 4096 / 16000, 25, 0.06, "Holz", 0.5, 1.0 / 16000, 0.5)
     shape, sc = ir_synth.IRShape.from_geometry(g), ir_synth.IRScalars.from_geometry(g)
@@ -130,10 +127,102 @@ def test_injected_kernel_split_point_one(cuda):
     packed = [torch.from_numpy(a).cuda() for a in bank.pack_draws(
         shape, np.ones((2, 25), np.int32), np.full((2, 25), 0.5), noise)]
     scal = sc.table(2, cuda)
-    fin_k = bank._finalize_bank(*bank._rir_bank_cuda(*packed, scal, shape), shape)
-    fin_p = bank._finalize_bank(*bank._rir_bank_plain(*packed, scal, shape), shape)
-    for k, p in zip(fin_k, fin_p):
+    fin_k = bank._rir_bank_cuda(*packed, scal, shape)
+    fin_p = bank._rir_bank_plain(*packed, scal, shape)
+    assert torch.equal(fin_k[2], fin_p[2])
+    for k, p in zip(fin_k[:2], fin_p[:2]):
         assert (k - p).abs().max().item() <= BANK_TOL
+
+
+def edge_shape(name):
+    """(IRShape, IRScalars) of the shapes where the redesigned bank's
+    indexing can go wrong."""
+    room = pipeline.build_internal_setup(RenderParams(), 48000, 100)
+    base = room.ir_shape
+    shapes = {
+        # the main path's shape: 72,000 samples, 18 tiles, rows 16-byte aligned
+        "bench": base,
+        # the tail starts at sample 1, length one whole tile
+        "split1": ir_synth.IRShape(length=4096, split_point=1, actual_max_early_delay=1,
+                                   reflection_count=25, late_length=4095,
+                                   noise_smooth_width=10, early_taps_active=False),
+        # L % 4 == 3: every row after the first starts off a 16-byte boundary
+        "ragged": base._replace(length=2 * 4096 + 3, late_length=2 * 4096 + 3 - base.split_point),
+        # Cathedral 600: 346,809 samples (odd), 85 tiles
+        "cathedral": pipeline.build_internal_setup(
+            RenderParams(hall_type="Cathedral", room_size=600.0), 48000, 100).ir_shape,
+        # a last tile of 1 sample
+        "tile_plus_one": base._replace(length=4 * 4096 + 1,
+                                       late_length=4 * 4096 + 1 - base.split_point),
+        # widths other than 10 take the kernels whose width is a run-time value
+        "width8": base._replace(noise_smooth_width=8),
+        "no_smoothing": base._replace(noise_smooth_width=1),
+    }
+    return shapes[name], room.ir_scalars
+
+
+EDGE_CASES = [("bench", [0, 2**31, 0xFFFFFFFF]), ("split1", [5, 2**31 + 7]),
+              ("ragged", [1, 2, 3, 0x80000001]), ("cathedral", [0xFFFFFFFF]),
+              ("tile_plus_one", [9]), ("width8", [4, 2**31]), ("no_smoothing", [6])]
+
+
+@pytest.mark.parametrize("name, seeds", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_bank_kernels_edge_shapes(cuda, name, seeds):
+    """Both kernels against their plain versions at the edge shapes, B=1
+    included (the parity path's batch), seeds ≥ 2^31 on the hash source."""
+    shape, sc = edge_shape(name)
+    batch = len(seeds)
+    scal = sc.table(batch, cuda)
+    seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds)).to(cuda)
+    for k, p in zip(bank._rir_block_cuda(seeds_t, scal, shape),
+                    bank._rir_block_plain(seeds_t, scal, shape)):
+        assert (k - p).abs().max().item() <= BANK_TOL, name
+    packed = injected_inputs(shape, batch, 17)
+    *fin_k, raw_k = bank._rir_bank_cuda(*packed, scal, shape)
+    *fin_p, raw_p = bank._rir_bank_plain(*packed, scal, shape)
+    assert torch.equal(raw_k, raw_p) and not raw_k.any()
+    for k, p in zip(fin_k, fin_p):
+        assert (k - p).abs().max().item() <= BANK_TOL, name
+
+
+@pytest.mark.parametrize("name", ["bench", "split1", "ragged", "cathedral", "width8"])
+def test_staged_smoothing_equals_rehashed_bit_for_bit(cuda, name):
+    """The kernels smooth from noise staged once per index in shared memory;
+    the plain version re-hashes each of the w taps.  With unit envelope and
+    amplitude (log_decay 0, initial_amp 1) and the per-entry scales off, the
+    late output IS the smoothed noise: it must agree bit for bit, for hash
+    draws and for the same noise injected.  The plain version runs on the
+    CPU, whose division by the width is exact (torch on CUDA multiplies by
+    the reciprocal)."""
+    shape, _ = edge_shape(name)
+    seeds = [3, 2**31 + 1]
+    scal = torch.tensor([[0.8, 0.5, 0.0, 1.0]] * 2, dtype=torch.float32)
+    seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds))
+    early_k, late_k = bank._rir_block_cuda(seeds_t.to(cuda), scal.to(cuda), shape,
+                                           unit_scales=True)
+    early_p, late_p, _ = bank._hash_bank_raw(seeds_t, scal, shape)
+    assert torch.equal(late_k.cpu(), late_p), name
+    assert (early_k.cpu() - early_p).abs().max().item() <= 1e-6
+    draws = [ir_synth.hash_draws(s, shape, cuda) for s in seeds]
+    packed = [torch.stack([d[i] for d in draws]).contiguous() for i in range(3)]
+    _, late_i, raw = bank._rir_bank_cuda(*packed, scal.to(cuda), shape, unit_scales=True)
+    assert not raw.any()
+    assert torch.equal(late_i.cpu(), late_p), name
+
+
+def test_injected_kernel_degenerate_unit_scales(cuda):
+    """A degenerate entry's raw-noise tail, before scaling, equals the plain
+    version's raw tail bit for bit; the other entry keeps its smoothed tail."""
+    shape, sc = edge_shape("bench")
+    packed = injected_inputs(shape, 2, 23, degenerate=(0,))
+    scal = sc.table(2, cuda)
+    _, late_k, raw_k = bank._rir_bank_cuda(*packed, scal, shape, unit_scales=True)
+    _, late_p, _, raw_tail = bank._injected_bank_raw(*packed, scal, shape)
+    assert raw_k.tolist() == [True, False]
+    # expf on both sides; 1e-10 and 1e-6 are a few ulps of tails peaking
+    # near 3e-5 (±1e-4 noise) and 0.3
+    assert (late_k[0] - raw_tail[0]).abs().max().item() <= 1e-10
+    assert (late_k[1] - late_p[1]).abs().max().item() <= 1e-6
 
 
 def test_render_draws_on_card_matches_cpu(cuda):

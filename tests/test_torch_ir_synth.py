@@ -7,6 +7,8 @@ Tolerances:
   another order (IRs peak at 0.9 / 0.7), the bound the JAX package's own
   Pallas and jnp backends meet (tests/test_pallas_rir.py).
 The JAX bank runs in interpret mode, as tests/test_pallas_rir.py runs it.
+Each geometry is derived twice, by the JAX package's ``params`` for the JAX
+side and by the port's own copy for the port.
 """
 
 import jax.numpy as jnp
@@ -14,15 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from audio_raytracing_studio_tpu import params as jparams
 from audio_raytracing_studio_tpu.ops import ir_synth as jir
 from audio_raytracing_studio_tpu.ops.ir_synth_pallas import fused_rir_bank as jax_bank
 from audio_raytracing_studio_tpu.ops.ir_synth_pallas import pack_draws as jax_pack_draws
-from audio_raytracing_studio_tpu.params import (
-    RenderParams,
-    adjust_parameters_for_3d,
-    compute_final_directionality_3d,
-    derive_ir_geometry,
-)
+from audio_raytracing_studio_tpu_torch import params as tparams
 from audio_raytracing_studio_tpu_torch.ops import ir_synth as tir
 from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda as bank
 from audio_raytracing_studio_tpu_torch.utils import kernels
@@ -33,35 +31,37 @@ IR_TOL = 2e-5
 SEEDS = [0, 5, 2**31, 0xFFFFFFFF]
 
 
-def geometry(p: RenderParams, rate: int):
-    dur, refs, maxd, split = adjust_parameters_for_3d(p.hall_type, p.room_size, p.z_pos)
-    direc = compute_final_directionality_3d(
+def geometry(p, rate: int, m=tparams):
+    """IRGeometry of RenderParams ``p`` by the params module ``m``."""
+    dur, refs, maxd, split = m.adjust_parameters_for_3d(p.hall_type, p.room_size, p.z_pos)
+    direc = m.compute_final_directionality_3d(
         p.x_pos, p.y_pos, p.z_pos, p.hall_type, p.diffusion, p.dry_wet
     )
-    return derive_ir_geometry(rate, dur, refs, maxd, p.material, direc, split, p.diffusion)
+    return m.derive_ir_geometry(rate, dur, refs, maxd, p.material, direc, split, p.diffusion)
 
 
-GEOMETRIES = {
+GEOMETRIES = {  # each: params module → IRGeometry
     # 16 kHz Room: one JAX block, six port tiles
-    "room16k": lambda: geometry(RenderParams(), 16000),
+    "room16k": lambda m: geometry(m.RenderParams(), 16000, m),
     # Cathedral at room_size 600, 16 kHz: 115k samples, four JAX blocks
-    "cathedral16k": lambda: geometry(RenderParams(hall_type="Cathedral", room_size=600.0), 16000),
+    "cathedral16k": lambda m: geometry(m.RenderParams(hall_type="Cathedral", room_size=600.0),
+                                       16000, m),
     # smallest geometry: no smoothing (width 1)
-    "plate_tiny": lambda: geometry(
-        RenderParams(hall_type="Plate", room_size=10.0, diffusion=0.0), 8000
+    "plate_tiny": lambda m: geometry(
+        m.RenderParams(hall_type="Plate", room_size=10.0, diffusion=0.0), 8000, m
     ),
     # split_point 1, length an exact tile multiple (tile-edge smoothing)
-    "split1": lambda: derive_ir_geometry(16000, 4096 / 16000, 25, 0.06, "Holz", 0.5,
-                                         1.0 / 16000, 0.5),
+    "split1": lambda m: m.derive_ir_geometry(16000, 4096 / 16000, 25, 0.06, "Holz", 0.5,
+                                             1.0 / 16000, 0.5),
     # the bench shape: 48 kHz Room, 72,000 samples, 18 tiles
-    "room48k": lambda: geometry(RenderParams(), 48000),
+    "room48k": lambda m: geometry(m.RenderParams(), 48000, m),
 }
 
 
 def shapes(name):
-    g = GEOMETRIES[name]()
+    g, jg = GEOMETRIES[name](tparams), GEOMETRIES[name](jparams)
     return (tir.IRShape.from_geometry(g), tir.IRScalars.from_geometry(g),
-            jir.IRShape.from_geometry(g), jir.IRScalars.from_geometry(g))
+            jir.IRShape.from_geometry(jg), jir.IRScalars.from_geometry(jg))
 
 
 def test_shape_and_scalars_match_jax():
@@ -184,17 +184,18 @@ def test_injected_plain_bank_matches_jax(rng, case):
 
 def test_injected_degenerate_smoothing_takes_raw_noise(rng):
     """The degenerate entry keeps synthesize's raw alternating tail (peak 0.7
-    over the whole tail), flagged in slot 7 of tile 0; the other entry keeps
-    its smoothed tail.  Keeping the smoothed tail would leave only the two
-    edge samples of the tail standing."""
+    over the whole tail) and is flagged; the other entry keeps its smoothed
+    tail.  Keeping the smoothed tail would leave only the two edge samples
+    of the tail standing."""
     t_shape, t_sc, _, _ = shapes("room48k")
     delays, strengths, noise = make_draws(rng, t_shape, 2)
     noise[0] = alternating_noise(noise.shape[1])
     packed = [torch.from_numpy(a) for a in bank.pack_draws(t_shape, delays, strengths, noise)]
-    _, late_raw, stats = bank._rir_bank_plain(*packed, t_sc.table(2, "cpu"), t_shape)
-    assert stats[:, 0, 7].tolist() == [1.0, 0.0]
-    assert not stats[:, 1:, 7].any()
-    _, late = bank._finalize_bank(late_raw, late_raw, stats, t_shape)
+    _, late, raw = bank._rir_bank_plain(*packed, t_sc.table(2, "cpu"), t_shape)
+    assert raw.tolist() == [True, False]
+    stats = bank._injected_bank_raw(*packed, t_sc.table(2, "cpu"), t_shape)[2]
+    # slot 7, max|raw tail| per tile, sets the degenerate entry's peak
+    assert float(stats[0, :, 7].max()) > 5 * float(stats[0, :, 5].max())
     tail = late[0, t_shape.split_point:]
     assert float(tail.abs().max()) == pytest.approx(0.7, abs=1e-6)
     head = tail[:2000]  # the decay underflows float32 further out
@@ -217,15 +218,22 @@ def test_injected_bank_structure_and_norms(rng):
 
 def test_injected_plain_stats_match_hash_plain_on_hash_draws():
     """Fed the hash stream's own draws, the injected plain bank reproduces the
-    hash plain bank's raw IRs and stats exactly (one shared body)."""
+    hash plain bank's raw IRs and stats (slots 0-6; slot 7 is the injected
+    source's own) and final IRs exactly (one shared body), and flags no
+    entry."""
     t_shape, t_sc, _, _ = shapes("room16k")
     seeds = [3, 2**31]
     draws = [tir.hash_draws(s, t_shape) for s in seeds]
     packed = [torch.stack([d[i] for d in draws]) for i in range(3)]
     scal = t_sc.table(2, "cpu")
-    got = bank._rir_bank_plain(*packed, scal, t_shape)
-    want = bank._rir_block_plain(torch.from_numpy(tir.seeds_to_int32(seeds)), scal, t_shape)
-    for g, w in zip(got, want):
+    seeds_t = torch.from_numpy(tir.seeds_to_int32(seeds))
+    early, late, stats, _ = bank._injected_bank_raw(*packed, scal, t_shape)
+    want = bank._hash_bank_raw(seeds_t, scal, t_shape)
+    assert torch.equal(early, want[0]) and torch.equal(late, want[1])
+    assert torch.equal(stats[..., :7], want[2][..., :7])
+    *got, raw = bank._rir_bank_plain(*packed, scal, t_shape)
+    assert not raw.any()
+    for g, w in zip(got, bank._rir_block_plain(seeds_t, scal, t_shape)):
         assert torch.equal(g, w)
 
 
@@ -251,14 +259,13 @@ class TestPackDraws:
                             np.zeros((1, 10)))
 
     def test_bank_draws_from_irdraws(self, rng):
-        """models.convert.bank_draws: a list of the JAX package's IRDraws →
-        the injected bank's inputs, identical to pack_draws."""
-        from audio_raytracing_studio_tpu.params import IRDraws
+        """models.convert.bank_draws: a list of IRDraws → the injected bank's
+        inputs, identical to pack_draws."""
         from audio_raytracing_studio_tpu_torch.models import convert
 
-        g = GEOMETRIES["room16k"]()
+        g = GEOMETRIES["room16k"](tparams)
         t_shape = tir.IRShape.from_geometry(g)
-        draws = [IRDraws.sample(np.random.default_rng(s), g) for s in (1, 2)]
+        draws = [tparams.IRDraws.sample(np.random.default_rng(s), g) for s in (1, 2)]
         got = convert.bank_draws(draws, t_shape)
         want = bank.pack_draws(t_shape, np.stack([d.delays for d in draws]),
                                np.stack([d.strengths for d in draws]),
@@ -297,11 +304,11 @@ def test_bank_norms_and_structure():
 
 
 def test_plain_bank_stats_per_tile():
-    """Raw stats keep the kernel's meaning: valid counts sum to late_length,
-    tiles past the tail are empty."""
+    """Raw stats keep the kernels' meaning: valid counts sum to late_length,
+    tiles past the tail are empty, the hash source has no raw-tail slot."""
     t_shape, t_sc, _, _ = shapes("room16k")
     seeds = torch.tensor([3, 4], dtype=torch.int32)
-    _, _, stats = bank._rir_block_plain(seeds, t_sc.table(2, "cpu"), t_shape)
+    _, _, stats = bank._hash_bank_raw(seeds, t_sc.table(2, "cpu"), t_shape)
     assert stats.shape == (2, bank.n_tiles(t_shape), bank.N_STATS)
     assert stats[:, :, 6].sum(1).tolist() == [t_shape.late_length] * 2
     assert (stats[:, :, 1] >= 0).all() and (stats[:, :, 3] >= 0).all()
@@ -390,7 +397,6 @@ class TestNoSilentFallback:
     def test_render_draws_on_cpu_uses_plain_synthesize(self, monkeypatch, tone48k):
         """On the CPU, render(draws=...) keeps the plain synthesize, as the JAX
         package does; the injected bank is the GPU's producer."""
-        from audio_raytracing_studio_tpu.params import IRDraws
         from audio_raytracing_studio_tpu_torch.models import pipeline
 
         def forbidden(*args, **kwargs):
@@ -398,8 +404,8 @@ class TestNoSilentFallback:
 
         monkeypatch.setattr(pipeline, "fused_rir_bank", forbidden)
         x, rate = tone48k
-        p = RenderParams(target_layout="Stereo")
-        d = IRDraws.sample(np.random.default_rng(1), geometry(p, rate))
+        p = tparams.RenderParams(target_layout="Stereo")
+        d = tparams.IRDraws.sample(np.random.default_rng(1), geometry(p, rate))
         assert pipeline.render(x[:4800], rate, p, draws=d, device="cpu").shape[1] == 2
 
     def test_cuda_request_without_card_raises(self):
@@ -409,7 +415,7 @@ class TestNoSilentFallback:
         from audio_raytracing_studio_tpu_torch.parallel import sharding
 
         x = np.zeros(800, np.float32)
-        p = RenderParams(target_layout="Stereo")
+        p = tparams.RenderParams(target_layout="Stereo")
         with pytest.raises(RuntimeError, match="cuda"):
             pipeline.render(x, 8000, p, seed=1, device="cuda")
         with pytest.raises(RuntimeError, match="cuda"):

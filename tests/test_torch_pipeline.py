@@ -13,7 +13,13 @@ Tolerances:
 - metrics vs JAX and vs the oracle meter: ≤ 0.01 LU (PARITY.md item 2),
   sample peak and RMS ≤ 1e-3 dB;
 - PCM16 quantization: bit-equal.
+
+Parameters and draws are the port's own classes; ``jx`` carries them across
+to the JAX package's (same fields) where a JAX or oracle function computes
+the reference.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -27,8 +33,9 @@ from audio_raytracing_studio_tpu.ops import filters as jfilters
 from audio_raytracing_studio_tpu.ops import spatial as jspatial
 from audio_raytracing_studio_tpu.oracle import dsp
 from audio_raytracing_studio_tpu.oracle.loudness import calculate_audio_metrics
-from audio_raytracing_studio_tpu.params import IRDraws, RenderParams
+from audio_raytracing_studio_tpu import params as jparams
 from audio_raytracing_studio_tpu.parallel import sharding as jsharding
+from audio_raytracing_studio_tpu_torch import IRDraws, RenderParams
 from audio_raytracing_studio_tpu_torch.models import convert
 from audio_raytracing_studio_tpu_torch.models import pipeline as tpipe
 from audio_raytracing_studio_tpu_torch.ops import convolution, filters, spatial
@@ -52,6 +59,15 @@ def tone(rate: int, seconds: float, seed: int = 3) -> np.ndarray:
     x[: rate // 100] = 0.0
     x[len(x) // 2] = 0.9
     return x.astype(np.float32)
+
+
+def jx(obj):
+    """The port's RenderParams / IRDraws (or a list of RenderParams) → the
+    JAX package's class with the same fields."""
+    if isinstance(obj, (list, tuple)):
+        return [jx(o) for o in obj]
+    cls = {RenderParams: jparams.RenderParams, IRDraws: jparams.IRDraws}[type(obj)]
+    return cls(**dataclasses.asdict(obj))
 
 
 def max_err(a, b) -> float:
@@ -84,7 +100,7 @@ RENDER_CASES = {
 def test_render_matches_jax_same_seed(case):
     rate, seconds, p, fast = RENDER_CASES[case]
     x = tone(rate, seconds)
-    want = jpipe.render(x, rate, p, seed=11, fast_filters=fast)
+    want = jpipe.render(x, rate, jx(p), seed=11, fast_filters=fast)
     got = tpipe.render(x, rate, p, seed=11, fast_filters=fast, device="cpu")
     assert got.dtype == np.float32
     if case == "cathedral_exact_wrap":
@@ -124,7 +140,7 @@ def test_render_draws_matches_oracle(tone48k, config, fast):
     p = BASELINE[config]
     d = oracle_draws(p, rate)
     got = tpipe.render(x, rate, p, draws=d, fast_filters=fast, device="cpu")
-    ref = dsp.render(x, rate, p, draws=d)
+    ref = dsp.render(x, rate, jx(p), draws=jx(d))
     assert max_err(got, ref) <= ORACLE_TOL
     q_got, q_ref = dsp.quantize_pcm16(got), dsp.quantize_pcm16(ref)
     lsb = int(np.max(np.abs(q_got.astype(np.int32) - q_ref.astype(np.int32))))
@@ -136,7 +152,7 @@ def test_render_draws_matches_jax_draws(tone48k):
     p = BASELINE["config4_51_positioned"]
     d = oracle_draws(p, rate)
     assert max_err(tpipe.render(x, rate, p, draws=d, device="cpu"),
-                   jpipe.render(x, rate, p, draws=d)) <= JAX_TOL
+                   jpipe.render(x, rate, jx(p), draws=jx(d))) <= JAX_TOL
 
 
 def assert_metrics_close(got: dict, want: dict, lu=LU_TOL, db=DB_TOL):
@@ -172,11 +188,11 @@ def test_config2_external_ir_matches_oracle(rng, tone48k):
     ir = external_ir(rng)
     got, metrics = tpipe.render(x, rate, CONFIG2, external_ir=ir, return_metrics=True,
                                 device="cpu")
-    ref = dsp.render(x, rate, CONFIG2, external_ir=ir)
+    ref = dsp.render(x, rate, jx(CONFIG2), external_ir=ir)
     assert got.shape == ref.shape == (x.shape[0] + ir.shape[0] - 1, 2)
     assert_oracle_parity(got, ref)
     assert_metrics_close(metrics, calculate_audio_metrics(ref, rate))
-    want = jpipe.render(x, rate, CONFIG2, external_ir=ir)
+    want = jpipe.render(x, rate, jx(CONFIG2), external_ir=ir)
     assert max_err(got, want) <= JAX_TOL
 
 
@@ -192,8 +208,8 @@ def test_external_ir_resampled_44k1(rng, tone48k):
     assert max_err(ir48, signal.resample(ir44, 2400, axis=0)) <= 5e-6
     p = RenderParams(use_external_ir=True, target_layout="Stereo")
     got = tpipe.render(x, rate, p, external_ir=ir44, external_ir_rate=44100, device="cpu")
-    assert_oracle_parity(got, dsp.render(x, rate, p, external_ir=ir48))
-    want = jpipe.render(x, rate, p, external_ir=ir44, external_ir_rate=44100)
+    assert_oracle_parity(got, dsp.render(x, rate, jx(p), external_ir=ir48))
+    want = jpipe.render(x, rate, jx(p), external_ir=ir44, external_ir_rate=44100)
     assert max_err(got, want) <= JAX_TOL
 
 
@@ -230,7 +246,7 @@ def test_render_metrics_match_jax_and_oracle(case):
     p, rate = METRIC_CASES[case]
     x = tone(rate, 1.2)
     got, metrics = tpipe.render(x, rate, p, seed=5, return_metrics=True, device="cpu")
-    want, want_metrics = jpipe.render(x, rate, p, seed=5, return_metrics=True)
+    want, want_metrics = jpipe.render(x, rate, jx(p), seed=5, return_metrics=True)
     assert max_err(got, want) <= JAX_TOL
     assert_metrics_close(metrics, want_metrics)
     assert_metrics_close(metrics, calculate_audio_metrics(got, rate))
@@ -246,7 +262,7 @@ def test_render_metrics_silent_input():
 
 
 def test_injected_draws_over_budget_rejected(rng):
-    from audio_raytracing_studio_tpu.params import derive_ir_geometry
+    from audio_raytracing_studio_tpu_torch.params import derive_ir_geometry
 
     g = derive_ir_geometry(8000, 0.5, 200, 0.06, "Holz", 0.5, 0.03, 0.5)
     with pytest.raises(ValueError, match="MAX_REFLECTIONS"):
@@ -278,7 +294,7 @@ SWEEP_SEEDS = [1, 2**31, 0xFFFFFFFF]
 def test_render_batch_matches_jax_pallas(fast):
     rate = 16000
     clips = np.stack([tone(rate, 0.5, seed=i) for i in range(3)])
-    want = jsharding.render_batch(clips, rate, SWEEP, seeds=SWEEP_SEEDS,
+    want = jsharding.render_batch(clips, rate, jx(SWEEP), seeds=SWEEP_SEEDS,
                                   ir_backend="pallas", fast_filters=fast)
     before = bank.launch_count
     got = tsharding.render_batch(clips, rate, SWEEP, seeds=SWEEP_SEEDS, fast_filters=fast,
@@ -380,7 +396,7 @@ def test_render_batch_metrics_match_jax(fast):
     clips, lengths = padded_clips(rate, 0.8, [0, 777, 1234])
     kw = dict(seeds=[0, 1, 2], clip_lengths=lengths, with_metrics=True, fast_filters=fast)
     got, metrics = tsharding.render_batch(clips, rate, PADDED_PARAMS, device="cpu", **kw)
-    want, want_metrics = jsharding.render_batch(clips, rate, PADDED_PARAMS, **kw)
+    want, want_metrics = jsharding.render_batch(clips, rate, jx(PADDED_PARAMS), **kw)
     assert max_err(got, want) <= JAX_TOL
     assert len(metrics) == 3
     for m, w in zip(metrics, want_metrics):
@@ -425,7 +441,7 @@ def test_padded_eq_matches_oracle():
     d, st, nz = map(np.asarray, jir.hash_draws(11, jir.IRShape.from_geometry(g)))
     draws = IRDraws(delays=d[: g.reflection_count], strengths=st[: g.reflection_count],
                     noise=nz[: g.late_length])
-    ref = dsp.render(x, rate, p, draws=draws)
+    ref = dsp.render(x, rate, jx(p), draws=jx(draws))
     assert_oracle_parity(out[: ref.shape[0]], ref)
     assert not out[ref.shape[0]:].any()
 
@@ -460,7 +476,7 @@ class TestBatchedExternal:
         out, metrics = tsharding.render_batch(clips, self.rate, params, external_ir=ir,
                                               with_metrics=True, device="cpu")
         assert out.shape == (3, clips.shape[1] + 800 - 1, 2) and len(metrics) == 3
-        want, want_metrics = jsharding.render_batch(clips, self.rate, params, external_ir=ir,
+        want, want_metrics = jsharding.render_batch(clips, self.rate, jx(params), external_ir=ir,
                                                     with_metrics=True)
         assert max_err(out, want) <= JAX_TOL
         for i, p in enumerate(params):
@@ -484,7 +500,7 @@ class TestBatchedExternal:
         real_len = true_lens[1] + ir.shape[0] - 1
         ref = jloud.audio_metrics(jnp.asarray(f[1, :real_len].T), self.rate)
         assert_metrics_close(metrics[1], {k: float(v) for k, v in ref.items()})
-        _, want = jsharding.render_batch(clips, self.rate, p, external_ir=ir,
+        _, want = jsharding.render_batch(clips, self.rate, jx(p), external_ir=ir,
                                          with_metrics=True, pcm16_output=True,
                                          clip_lengths=true_lens)
         for m, w in zip(metrics, want):
@@ -501,7 +517,7 @@ class TestBatchedExternal:
         out = tsharding.render_batch(clips, self.rate, p, external_ir=ir,
                                      external_ir_rate=44100, clip_lengths=true_lens,
                                      device="cpu")
-        want = jsharding.render_batch(clips, self.rate, p, external_ir=ir,
+        want = jsharding.render_batch(clips, self.rate, jx(p), external_ir=ir,
                                       external_ir_rate=44100, clip_lengths=true_lens)
         assert max_err(out, want) <= JAX_TOL
         solo = tpipe.render(clips[1, : true_lens[1]], self.rate, p, external_ir=ir,
@@ -533,7 +549,7 @@ class TestBatchedExternal:
 ], ids=["room", "cathedral", "plate_edge"])
 def test_build_internal_setup_matches_from_jax_setup(p, fast):
     ours = tpipe.build_internal_setup(p, 48000, 12345, fast_filters=fast)
-    theirs = convert.from_jax_setup(jpipe.build_internal_setup(p, 48000, 12345,
+    theirs = convert.from_jax_setup(jpipe.build_internal_setup(jx(p), 48000, 12345,
                                                                 fast_filters=fast))
     assert ours.ir_shape == theirs.ir_shape
     assert ours.spec == theirs.spec
