@@ -33,6 +33,7 @@ from ..params import (
     dry_kill_factor,
     eq_enabled,
 )
+from ..utils.runtime import ensure_device
 
 
 class MixScalars(NamedTuple):
@@ -82,17 +83,6 @@ class StaticSpec(NamedTuple):
     @property
     def len_out(self) -> int:
         return max(self.n_in, self.n_in + self.ir_length - 1)
-
-
-def resolve_device(device) -> torch.device:
-    """The device a render runs on; asking for CUDA without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' for the plain PyTorch path"
-        )
-    return dev
 
 
 def _col(x: torch.Tensor) -> torch.Tensor:
@@ -406,7 +396,7 @@ def render(
     """
     from . import convert  # imports this module
 
-    dev = resolve_device(device)
+    dev = ensure_device(device)
     audio_nc = _ensure_stereo_host(audio)
     audio_t = torch.from_numpy(np.ascontiguousarray(audio_nc.T))[None].to(dev)
     n_in = audio_nc.shape[0]

@@ -23,8 +23,17 @@ from ..models import pipeline
 from ..ops import ir_synth
 from ..ops.ir_synth_cuda import fused_rir_bank
 from ..params import RenderParams, eq_enabled
+from ..utils.runtime import ensure_device
 
 IR_BACKENDS = ("bank", "jnp")
+
+
+def bucket_length(n: int, rate: int) -> int:
+    """Quantize a clip length up to a half-second grid — the batching key of
+    the directory renderer (``cli.render_dir``), and the padded length of the
+    binaural mix (``ops.binaural``), whose FFT size it sets."""
+    step = max(1, rate // 2)
+    return -(-int(n) // step) * step
 
 
 def _batched_internal(
@@ -126,7 +135,7 @@ def render_batch(
         raise NotImplementedError("multi-device rendering is not ported yet")
     if ir_backend not in IR_BACKENDS:
         raise ValueError(f"ir_backend must be one of {IR_BACKENDS}, got {ir_backend!r}")
-    dev = pipeline.resolve_device(device)
+    dev = ensure_device(device)
 
     audio = np.asarray(audio, dtype=np.float32)
     if audio.ndim == 2:

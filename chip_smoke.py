@@ -12,7 +12,10 @@ Drives the port's paths at full size and checks them:
   the same draws (``tests/test_torch_cuda.py`` holds the same renders to the
   float64 oracle on the card);
 - the metered, padded batch — ``render_batch(with_metrics=True,
-  clip_lengths=..., pcm16_output=True)`` at B=48 × 60 s, EQ off and on.
+  clip_lengths=..., pcm16_output=True)`` at B=48 × 60 s, EQ off and on;
+- the headless CLIs — ``cli.render``, ``cli.render_dir`` and
+  ``cli.analyzer`` on WAV files, with the binaural downmix and the
+  polyphase resampler.
 
 Phases, one line each:
 
@@ -41,7 +44,21 @@ Phases, one line each:
    calls, ``fused_rir_bank`` whole (scalar upload included) and the scalar
    upload alone beside the plain versions (CUDA events, in turns plain,
    kernel, kernel, plain), at the bench shape, at B=1 and at the Cathedral
-   shape (its injected noise overflows the 50 MB L2).
+   shape (its injected noise overflows the 50 MB L2);
+6. the CLIs, called in this process in a temporary directory: ``cli.render``
+   on a 60 s, 48 kHz stereo clip (Cathedral 300, 5.1; plain, ``--binaural``,
+   ``--sweep diffusion=0.2,0.5,0.8``), each written WAV equal bit for bit to
+   ``encode_pcm16`` of the port's ``render`` / ``binauralize`` /
+   ``render_batch`` on the card, the binaural mix also within 1e-4 of the
+   CPU's; ``cli.render_dir --batch 8 --metrics`` over 24 stems (mono and
+   stereo, three length groups of about 30, 45 and 60 s), then
+   ``--binaural`` over 8 of them, each output of length true + IR - 1 and
+   its metrics within 0.01 LU of the meter on the file; ``cli.analyzer``
+   ``analyze --true-peak``, ``normalize --target -16`` (measured again
+   within 0.05 LU) and ``convert --samplerate 48000`` of a 44.1 kHz clip
+   (``resample_poly`` on the card within 1e-5 of the CPU's, the file equal
+   to its PCM16); the wall time of each call, the binaural table and mix
+   and ``resample_poly`` on the card.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -53,10 +70,15 @@ or without the rest of the checkout, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -70,6 +92,8 @@ LU_TOL = 0.01  # card vs CPU meter, masked vs trimmed (PARITY.md item 2's bound)
 DB_TOL = 0.01  # sample peak and RMS, dB
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 PEAK_F32_S = 67e12  # float32 outside the tensor cores, same source
+CLI_SECONDS = 60  # phase 6: the one clip and the 44.1 kHz clip to convert
+STEM_SECONDS = (30, 45, 60)  # phase 6: the three length groups of the stems
 
 
 class SmokeFailure(RuntimeError):
@@ -337,6 +361,242 @@ def metered_batch_phase(np, torch, sharding, loudness, bank, clips) -> None:
               f"masked vs trimmed lufs d {worst[2]:.2e} LU, rms d {worst[3]:.2e} dB", flush=True)
 
 
+def run_cli(main, argv) -> tuple:
+    """One CLI's ``main(argv)`` in this process → (its standard output, wall
+    seconds); a non-zero exit fails the phase."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{main.__module__} {argv[2:]}: exit {rc}")
+    return buf.getvalue(), wall
+
+
+def session_clips(np, rng):
+    """24 seeded clips at 48 kHz, mono and stereo in turns: three length
+    groups of 8 (about 30, 45 and 60 s), each inside one half-second bucket."""
+    t_cache = {}
+    clips = []
+    for group, seconds in enumerate(STEM_SECONDS):
+        bucket = seconds * RATE
+        for k in range(8):
+            n = bucket - 2400 * (k + 1) + int(rng.integers(0, 2400))
+            if n not in t_cache:
+                t_cache[n] = np.arange(n, dtype=np.float32) / RATE
+            t = t_cache[n]
+            f = 110.0 * (1 + group) + 23.0 * k
+            x = (0.3 * np.sin(2 * np.pi * f * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 0.25 * t))
+                 + rng.standard_normal(n, dtype=np.float32) * 0.02)
+            clips.append(x[:, None] if k % 2 == 0 else np.stack([x, 0.8 * x[::-1]], axis=1))
+    return clips
+
+
+def cli_phase(np, torch, bank, work: str, device: str = "cuda") -> dict:
+    """Phase 6: ``cli.render`` (plain, binaural, sweep), ``cli.render_dir``
+    (metered, binaural) and ``cli.analyzer`` (analyze, normalize, convert)
+    called in this process on the card, each result held to the port's own
+    functions on the same inputs.  Returns the wall times, the binaural and
+    resampler times and the bank launches the CLIs made."""
+    from audio_raytracing_studio_tpu_torch import RenderParams, config
+    from audio_raytracing_studio_tpu_torch.analysis.metrics import calculate_audio_metrics
+    from audio_raytracing_studio_tpu_torch.cli import analyzer, render, render_dir
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.ops import binaural
+    from audio_raytracing_studio_tpu_torch.ops.resample import resample_poly
+    from audio_raytracing_studio_tpu_torch.parallel import sharding
+    from audio_raytracing_studio_tpu_torch.utils import wavio
+    from audio_raytracing_studio_tpu_torch.utils.runtime import ensure_device
+
+    dev = ensure_device(device)
+    out = {"walls_s": {}, "launches": 0}
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+
+    def pcm(name):
+        data, rate = wavio.read(path(name))
+        return np.rint(data * 32768.0).astype(np.int16), data, rate
+
+    def cli(label, main, argv, launches):
+        before = bank.launch_count
+        stdout, wall = run_cli(main, [*argv, "--device", device])
+        launched = bank.launch_count - before
+        check(launched == launches, f"{label}: {launched} bank launches, expected {launches}")
+        out["launches"] += launched
+        out["walls_s"][label] = wall
+        return stdout
+
+    rng = np.random.default_rng(0x5E55)
+    n = CLI_SECONDS * RATE
+    t = np.arange(n, dtype=np.float32) / RATE
+    song = np.stack([0.35 * np.sin(2 * np.pi * 220 * t) * np.exp(-(t % 2.0)),
+                     0.3 * np.sin(2 * np.pi * 330 * t + 0.5) * np.exp(-((t + 1.0) % 2.0))],
+                    axis=1) + rng.standard_normal((n, 2), dtype=np.float32) * 0.01
+    wavio.write(path("song.wav"), song, RATE)
+    audio, _ = wavio.read(path("song.wav"))
+    layout = "5.1 (Standard)"
+    flags = ["--hall", "Cathedral", "--room-size", "300", "--layout", layout, "--metrics",
+             "--json", "--seed", "3"]
+    p = RenderParams(hall_type="Cathedral", room_size=300.0, target_layout=layout)
+
+    # --- one clip: plain (twice: the first call creates its cuFFT plans) ---
+    res = json.loads(cli("render plain (first)", render.main,
+                         [path("song.wav"), path("one.wav"), *flags], 1))
+    res = json.loads(cli("render plain", render.main,
+                         [path("song.wav"), path("one.wav"), *flags], 1))
+    # the CLI's wall split: the WAV read, render() with its host copies, the write
+    split = {}
+    t0 = time.perf_counter()
+    wavio.read(path("song.wav"))
+    split["read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref, ref_m = pipeline.render(audio, RATE, p, seed=3, return_metrics=True, device=dev)
+    split["render_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wavio.write_audio(path("again.wav"), np.clip(ref, -0.9999, 0.9999), RATE)
+    split["clip_and_write_s"] = time.perf_counter() - t0
+    out["render_plain_split"] = split
+    q, one_data, _ = pcm("one.wav")
+    check(q.shape == ref.shape and q.shape[1] == 6, f"render: {q.shape} vs {ref.shape}")
+    check(np.array_equal(q, wavio.encode_pcm16(np.clip(ref, -0.9999, 0.9999))),
+          "render: the written WAV differs from encode_pcm16 of render()")
+    d = [abs(res[0]["metrics"][k] - ref_m[k]) for k in ("lufs", "true_peak_dbfs", "rms_dbfs")]
+    check(max(d) <= 1e-6, f"render: JSON metrics {res[0]['metrics']} vs {ref_m}")
+    print(f"[6 cli] render {CLI_SECONDS} s, Cathedral 300, 5.1: {q.shape} int16 = encode_pcm16(render()) "
+          f"bit for bit; metrics d {max(d):.1e}; wall {out['walls_s']['render plain']:.2f} s "
+          f"(first call {out['walls_s']['render plain (first)']:.2f} s; read "
+          f"{split['read_s']:.3f} s, render() {split['render_s']:.3f} s, clip and write "
+          f"{split['clip_and_write_s']:.3f} s)", flush=True)
+
+    # --- one clip, binaural ---
+    res = json.loads(cli("render binaural", render.main,
+                         [path("song.wav"), path("bin.wav"), *flags, "--binaural"], 1))
+    q, bin_data, _ = pcm("bin.wav")
+    card_bin = binaural.binauralize(ref, RATE, layout, device=dev)
+    cpu_bin = binaural.binauralize(ref, RATE, layout, device="cpu")
+    err = float(np.abs(card_bin - cpu_bin).max())
+    check(q.shape == (ref.shape[0], 2), f"binaural: {q.shape}")
+    check(err <= 1e-4, f"binaural: card vs CPU {err}")
+    check(np.array_equal(q, wavio.encode_pcm16(np.clip(card_bin, -0.9999, 0.9999))),
+          "binaural: the written WAV differs from the card's binauralize()")
+    file_err = float(np.abs(bin_data - np.clip(cpu_bin, -0.9999, 0.9999)).max())
+    check(file_err <= 1e-4, f"binaural: file vs CPU binauralize {file_err}")
+    d_bin = check_metrics(res[0]["metrics"], calculate_audio_metrics(bin_data, RATE, device=dev),
+                          "binaural: metrics vs the meter on the file")
+    # the split: ear table built on the card, then the mix alone on resident data
+    names = tuple(config.CHANNEL_LAYOUTS[layout]["names"])
+    nfft = binaural.transform_size(names, ref.shape[0], RATE)
+    binaural._binaural_table.cache_clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = binaural._binaural_table(names, RATE, nfft, str(dev))
+    torch.cuda.synchronize()
+    out["binaural_table_ms"] = 1e3 * (time.perf_counter() - t0)
+    x_cn = torch.from_numpy(np.ascontiguousarray(ref.T)).to(dev)
+    out["binaural_mix_ms"] = cuda_ms(torch, lambda: binaural._binaural_mix(
+        x_cn, table, nfft, ref.shape[0]), 5)
+    t0 = time.perf_counter()
+    binaural.binauralize(ref, RATE, layout, device=dev)
+    out["binauralize_call_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["binaural_nfft"] = nfft
+    del x_cn, table
+    print(f"[6 cli] render --binaural: {q.shape}; card vs CPU binauralize {err:.2e}, file vs "
+          f"CPU {file_err:.2e}; metrics vs meter on the file lufs d {d_bin[0]:.1e} LU; wall "
+          f"{out['walls_s']['render binaural']:.2f} s; binaural at {CLI_SECONDS} s of 5.1 (nfft {nfft}): "
+          f"table {out['binaural_table_ms']:.2f} ms, mix {out['binaural_mix_ms']:.2f} ms, "
+          f"binauralize() with host copies {out['binauralize_call_ms']:.2f} ms", flush=True)
+
+    # --- a sweep ---
+    values = [0.2, 0.5, 0.8]
+    cli("render sweep", render.main,
+        [path("song.wav"), path("sw_{i}.wav"), *flags, "--sweep", "diffusion=0.2,0.5,0.8"], 1)
+    outs, _ = sharding.render_batch(
+        np.stack([audio] * 3), RATE, [dataclasses.replace(p, diffusion=v) for v in values],
+        seeds=[3] * 3, with_metrics=True, device=dev)
+    for i in range(3):
+        check(np.array_equal(pcm(f"sw_{i}.wav")[0],
+                             wavio.encode_pcm16(np.clip(outs[i], -0.9999, 0.9999))),
+              f"sweep: file {i} differs from render_batch row {i}")
+    del outs
+    print(f"[6 cli] render --sweep diffusion=0.2,0.5,0.8: 3 files = render_batch rows bit for "
+          f"bit; wall {out['walls_s']['render sweep']:.2f} s", flush=True)
+
+    # --- a directory: 24 clips (a session's stems) through one hall ---
+    os.makedirs(path("stems"))
+    os.makedirs(path("stems8"))
+    clips = session_clips(np, rng)
+    for i, c in enumerate(clips):
+        wavio.write(path(f"stems/stem{i:02d}.wav"), c, RATE)
+        if 8 <= i < 16:
+            os.link(path(f"stems/stem{i:02d}.wav"), path(f"stems8/stem{i:02d}.wav"))
+    true_len = {f"stem{i:02d}.wav": c.shape[0] for i, c in enumerate(clips)}
+    audio_s = sum(true_len.values()) / RATE
+    del clips
+    ir_len = pipeline.build_internal_spec(RenderParams(), RATE, RATE)[0].ir_length
+    for label, src, extra, channels, launches in (
+        ("render_dir", "stems", [], 6, 3),
+        ("render_dir binaural", "stems8", ["--binaural", "--layout", layout], 2, 1),
+    ):
+        res = json.loads(cli(label, render_dir.main,
+                             [path(src), path(src + "_out"), "--batch", "8", "--metrics",
+                              "--json", *extra], launches))
+        check(len(res["clips"]) == len(os.listdir(path(src))), f"{label}: {len(res['clips'])} clips")
+        worst = [0.0, 0.0, 0.0]
+        for clip in res["clips"]:
+            name = os.path.basename(clip["output"])
+            data, rate = wavio.read(clip["output"])
+            check(data.shape == (true_len[name] + ir_len - 1, channels),
+                  f"{label}: {name} {data.shape}, expected ({true_len[name]} + {ir_len} - 1, "
+                  f"{channels})")
+            d = check_metrics(clip["metrics"], calculate_audio_metrics(data, rate, device=dev),
+                              f"{label}: {name} metrics vs the meter on the file")
+            worst = [max(a, b) for a, b in zip(worst, d)]
+        out[f"{label} realtime_factor"] = res["realtime_factor"]
+        print(f"[6 cli] {label} --batch 8 --metrics: {len(res['clips'])} clips, "
+              f"{res['audio_seconds']:.1f} audio-s in {res['wall_seconds']:.2f} s = "
+              f"{res['realtime_factor']:.1f}x realtime (file I/O included); lengths = true + "
+              f"IR - 1; metrics vs the meter on the files: lufs d {worst[0]:.1e} LU, peak d "
+              f"{worst[1]:.1e} dB, rms d {worst[2]:.1e} dB", flush=True)
+    out["render_dir_audio_s"] = audio_s
+
+    # --- the analyzer ---
+    res = json.loads(cli("analyze --true-peak", analyzer.main,
+                         ["analyze", path("one.wav"), "--true-peak"], 0))
+    check(res["Kanäle"] == 6 and abs(res["LUFS"] - ref_m["lufs"]) <= 0.01
+          and np.isfinite(res["True Peak 4x (dBTP)"]) and res["True Peak 4x (dBTP)"] >= res["Peak (dBFS)"] - 0.01,
+          f"analyze: {res}")
+    res_n = json.loads(cli("normalize --target -16", analyzer.main,
+                           ["normalize", path("one.wav"), path("norm.wav"), "--target", "-16"], 0))
+    lufs_n = calculate_audio_metrics(wavio.read(path("norm.wav"))[0], RATE, device=dev)["lufs"]
+    check(abs(lufs_n + 16.0) <= 0.05, f"normalize: {lufs_n} LUFS measured again, {res_n}")
+    t44 = np.arange(CLI_SECONDS * 44100, dtype=np.float32) / 44100
+    at44 = (np.stack([0.4 * np.sin(2 * np.pi * 997 * t44), 0.3 * np.sin(2 * np.pi * 15000 * t44)],
+                     axis=1) + rng.standard_normal((t44.size, 2), dtype=np.float32) * 0.02)
+    wavio.write(path("at44k1.wav"), at44, 44100)
+    cli("convert --samplerate 48000", analyzer.main,
+        ["convert", path("at44k1.wav"), path("at48k.wav"), "--samplerate", "48000"], 0)
+    x44 = torch.from_numpy(wavio.read(path("at44k1.wav"))[0]).to(dev)
+    card_rs = resample_poly(x44, 48000, 44100)
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 on after resample_poly")
+    cpu_rs = resample_poly(x44.cpu(), 48000, 44100)
+    rs_err = float((card_rs.cpu() - cpu_rs).abs().max())
+    check(rs_err <= 1e-5, f"resample_poly: card vs CPU {rs_err}")
+    q48, _, rate48 = pcm("at48k.wav")
+    check(rate48 == 48000 and q48.shape == (CLI_SECONDS * 48000, 2),
+          f"convert: {q48.shape} at {rate48}")
+    check(np.array_equal(q48, wavio.encode_pcm16(card_rs.cpu().numpy())),
+          "convert: the written WAV differs from resample_poly on the card")
+    out["resample_poly_ms"] = cuda_ms(torch, lambda: resample_poly(x44, 48000, 44100), 10)
+    w = out["walls_s"]
+    print(f"[6 cli] analyze --true-peak: LUFS {res['LUFS']}, peak {res['Peak (dBFS)']} dBFS, "
+          f"true peak {res['True Peak 4x (dBTP)']} dBTP ({w['analyze --true-peak']:.2f} s); "
+          f"normalize --target -16 measured again at {lufs_n:.4f} LUFS "
+          f"({w['normalize --target -16']:.2f} s); convert {CLI_SECONDS} s stereo 44.1 -> 48 kHz "
+          f"({w['convert --samplerate 48000']:.2f} s): card vs CPU resample_poly {rs_err:.2e}, "
+          f"file = encode_pcm16(card result); resample_poly on the card "
+          f"{out['resample_poly_ms']:.2f} ms", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -357,7 +617,8 @@ def main() -> int:
     from audio_raytracing_studio_tpu_torch.tools.profile_render import bench_clips
     from audio_raytracing_studio_tpu_torch.utils import kernels
 
-    # the path runs no matmul and no cuDNN convolution; pin both off anyway
+    # the render path runs no matmul and no cuDNN convolution, phase 6's
+    # resample_poly one cuDNN conv1d (which turns TF32 off itself); pin both off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check(not torch.backends.cuda.matmul.allow_tf32, "matmul TF32 still on")
@@ -588,6 +849,16 @@ def main() -> int:
     timing["parity_cpu_path_s"] = parity["cpu_s"]
     print("[5 timing] " + json.dumps(timing), flush=True)
 
+    # --- 6. the CLIs on the card ---
+    bank.launch_count = 0
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli = cli_phase(np, torch, bank, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    main_launches += cli["launches"]
+    print("[6 timing] " + json.dumps({"card": card, "nvidia_smi": smi, **cli}), flush=True)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -598,7 +869,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
-        "launches": main_launches,
+        "launches": main_launches,  # phases 4, 4c and 6
         "max_abs_err": bank_err,
         "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],

@@ -1,7 +1,8 @@
 """Checks that need an NVIDIA GPU and nvcc: the CUDA RIR-bank kernels (hash
 and injected draws) against their plain PyTorch versions on the card, the
 render paths through them, and the parity path at full size (BASELINE
-configs 1-5, 60 s at 48 kHz) against the float64 oracle.
+configs 1-5, 60 s at 48 kHz) against the float64 oracle; the binaural mix
+and ``resample_poly`` on the card against the CPU at 60 s.
 
 Marked ``cuda``; each test skips (with a reason) where no card is present,
 as on a CPU-only machine.  This file imports no JAX (the oracle is NumPy and
@@ -363,3 +364,28 @@ def test_metered_padded_batch_matches_oracle_meter(cuda, eq):
         assert not q[b, vlen:].any()
         trimmed = q[b, :vlen].astype(np.float64) / 32768.0
         assert_metrics_close(metrics[b], calculate_audio_metrics(trimmed, PARITY_RATE))
+
+
+def test_binaural_on_card_matches_cpu(cuda):
+    """60 s of 5.1 at 48 kHz (a 2^22-point transform): the card's table and
+    mix against the CPU's, ≤ 1e-4 — cuFFT against pocketfft over 4 M points."""
+    from audio_raytracing_studio_tpu_torch.ops import binaural
+
+    x = (np.random.default_rng(6).standard_normal((60 * 48000, 6)) * 0.1).astype(np.float32)
+    got = binaural.binauralize(x, 48000, "5.1 (Standard)", device=cuda)
+    want = binaural.binauralize(x, 48000, "5.1 (Standard)", device="cpu")
+    assert got.shape == want.shape == (60 * 48000, 2)
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+def test_resample_poly_on_card_matches_cpu(cuda):
+    """60 s of stereo, 44.1 → 48 kHz (160 phases, stride 147) through cuDNN
+    with TF32 off, against the CPU, ≤ 1e-5."""
+    from audio_raytracing_studio_tpu_torch.ops.resample import resample_poly
+
+    x = (np.random.default_rng(7).standard_normal((60 * 44100, 2)) * 0.2).astype(np.float32)
+    got = resample_poly(torch.from_numpy(x).to(cuda), 48000, 44100)
+    assert not torch.backends.cudnn.allow_tf32
+    want = resample_poly(x, 48000, 44100)
+    assert tuple(got.shape) == tuple(want.shape) == (60 * 48000, 2)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

@@ -26,7 +26,9 @@ def test_every_port_module_is_listed():
     for expected in ("ops.rng", "ops.ir_synth", "ops.ir_synth_cuda", "ops.convolution",
                      "ops.filters", "ops.spatial", "ops.resample", "metering.loudness",
                      "models.pipeline", "models.convert", "parallel.sharding",
-                     "utils.kernels", "config", "params", "metering.kweighting"):
+                     "utils.kernels", "config", "params", "metering.kweighting",
+                     "utils.runtime", "utils.wavio", "utils.presets", "analysis.metrics",
+                     "ops.binaural", "cli.render", "cli.render_dir", "cli.analyzer"):
         assert f"{port.__name__}.{expected}" in names
 
 
