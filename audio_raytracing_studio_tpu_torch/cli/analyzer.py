@@ -137,8 +137,9 @@ def main(argv=None) -> int:
     c = sub.add_parser("convert", help="convert WAV/AIFF to WAV, optionally rate-converting")
     c.add_argument("input")
     c.add_argument("output")
-    c.add_argument("--bitrate", default="256",
-                   help="lossy-encoder bitrate; unused, since the port writes WAV only")
+    # accepted so that the JAX CLI's command lines run unchanged; it sets a
+    # lossy encoder's bitrate, and the port writes WAV only
+    c.add_argument("--bitrate", default="256", help=argparse.SUPPRESS)
     c.add_argument("--samplerate", type=int, default=None,
                    help="also rate-convert (polyphase resampler on the device)")
     c.add_argument("--device", default="cuda", help=device_help)

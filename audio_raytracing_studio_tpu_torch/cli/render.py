@@ -96,10 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--stream", action="store_true",
         help="chunked streaming render (not ported yet: exits 2)",
     )
-    ap.add_argument(
-        "--chunk-seconds", type=float, default=30.0,
-        help="streaming chunk size in seconds (with --stream)",
-    )
+    # accepted so that the JAX CLI's command lines run unchanged; it sizes
+    # the chunks of --stream, which is not ported yet
+    ap.add_argument("--chunk-seconds", type=float, default=30.0, help=argparse.SUPPRESS)
     return ap
 
 

@@ -123,12 +123,13 @@ def resample_poly(x, rate_out: int, rate_in: int, half_width: int = 10) -> torch
     right = max(0, span + origin - n)
     x_ext = torch.nn.functional.pad(x.T[:, None, :], (left, right))
     x_ext = x_ext[..., max(0, origin) : max(0, origin) + span]
-    if x.is_cuda:
-        # TF32 would swamp the −80 dB stopband (the JAX package asks for
-        # Precision.HIGHEST for the same reason)
-        torch.backends.cudnn.allow_tf32 = False
-        if torch.backends.cudnn.allow_tf32:
-            raise RuntimeError("cuDNN TF32 could not be turned off")
-    y = torch.nn.functional.conv1d(x_ext, bank, stride=down)  # (C, up, q_count)
+    # TF32 would swamp the −80 dB stopband (the JAX package asks for
+    # Precision.HIGHEST for the same reason); the caller's setting comes back
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = torch.nn.functional.conv1d(x_ext, bank, stride=down)  # (C, up, q_count)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     out = y.transpose(1, 2).reshape(x.shape[1], q_count * up)[:, :n_out].T
     return out[:, 0] if squeeze else out

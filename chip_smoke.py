@@ -49,8 +49,11 @@ Phases, one line each:
    on a 60 s, 48 kHz stereo clip (Cathedral 300, 5.1; plain, ``--binaural``,
    ``--sweep diffusion=0.2,0.5,0.8``), each written WAV equal bit for bit to
    ``encode_pcm16`` of the port's ``render`` / ``binauralize`` /
-   ``render_batch`` on the card, the binaural mix also within 1e-4 of the
-   CPU's; ``cli.render_dir --batch 8 --metrics`` over 24 stems (mono and
+   ``render_batch`` on the card, the card's ``render`` within 1e-4 of the
+   CPU's, the binaural mix also within 1e-4 of the CPU's, and the bank held
+   to its plain version at each CLI shape and seed set (B=1 and B=3 at
+   Cathedral 300, B=8 at render_dir's micro-batches), uncounted;
+   ``cli.render_dir --batch 8 --metrics`` over 24 stems (mono and
    stereo, three length groups of about 30, 45 and 60 s), then
    ``--binaural`` over 8 of them, each output of length true + IR - 1 and
    its metrics within 0.01 LU of the meter on the file; ``cli.analyzer``
@@ -201,6 +204,26 @@ def turns(torch, kernel_fn, plain_fn, kernel_iters=50, plain_iters=10):
     plain_b = cuda_ms(torch, plain_fn, plain_iters)
     return ((kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2,
             {"plain": [plain_a, plain_b], "kernel": [kernel_a, kernel_b]})
+
+
+def hold_bank(np, torch, bank, label: str, shape, ir_scalars, seeds) -> list:
+    """The hash-draws kernels' final IRs against their plain version's on
+    the card for these seeds and this scalar table (one value or a (B,)
+    array per field) → [max-abs early, max-abs late], each ≤ BANK_TOL; the
+    call must be counted once."""
+    from audio_raytracing_studio_tpu_torch.ops import ir_synth
+
+    seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds)).cuda()
+    scal = ir_scalars.table(len(seeds), "cuda")
+    before = bank.launch_count
+    kern = bank._rir_block_cuda(seeds_t, scal, shape)
+    plain = bank._rir_block_plain(seeds_t, scal, shape)
+    torch.cuda.synchronize()
+    check(bank.launch_count == before + 1, f"{label}: bank call was not counted once")
+    errs = [(k - q).abs().max().item() for k, q in zip(kern, plain)]
+    check(all(np.isfinite(errs)) and max(errs) <= BANK_TOL,
+          f"{label} bank kernel vs plain {errs} > {BANK_TOL}")
+    return errs
 
 
 def injected_draws(bank, shape, batch: int, seed: int, degenerate=()):
@@ -402,7 +425,7 @@ def cli_phase(np, torch, bank, work: str, device: str = "cuda") -> dict:
     from audio_raytracing_studio_tpu_torch.analysis.metrics import calculate_audio_metrics
     from audio_raytracing_studio_tpu_torch.cli import analyzer, render, render_dir
     from audio_raytracing_studio_tpu_torch.models import pipeline
-    from audio_raytracing_studio_tpu_torch.ops import binaural
+    from audio_raytracing_studio_tpu_torch.ops import binaural, ir_synth
     from audio_raytracing_studio_tpu_torch.ops.resample import resample_poly
     from audio_raytracing_studio_tpu_torch.parallel import sharding
     from audio_raytracing_studio_tpu_torch.utils import wavio
@@ -461,8 +484,18 @@ def cli_phase(np, torch, bank, work: str, device: str = "cuda") -> dict:
           "render: the written WAV differs from encode_pcm16 of render()")
     d = [abs(res[0]["metrics"][k] - ref_m[k]) for k in ("lufs", "true_peak_dbfs", "rms_dbfs")]
     check(max(d) <= 1e-6, f"render: JSON metrics {res[0]['metrics']} vs {ref_m}")
+    # the card's render against the plain path on the CPU, and the bank at
+    # this shape (Cathedral 300: 275,899 samples, B=1) against its plain version
+    setup = pipeline.build_internal_setup(p, RATE, n)
+    bank_errs = hold_bank(np, torch, bank, "cli render", setup.ir_shape, setup.ir_scalars, [3])
+    cpu_ref = pipeline.render(audio, RATE, p, seed=3, device="cpu")
+    render_err = float(np.abs(ref - cpu_ref).max())
+    check(render_err <= RENDER_TOL, f"render: card vs CPU {render_err} > {RENDER_TOL}")
+    del cpu_ref
     print(f"[6 cli] render {CLI_SECONDS} s, Cathedral 300, 5.1: {q.shape} int16 = encode_pcm16(render()) "
-          f"bit for bit; metrics d {max(d):.1e}; wall {out['walls_s']['render plain']:.2f} s "
+          f"bit for bit; render() card vs CPU {render_err:.3e}; bank B=1 length "
+          f"{setup.ir_shape.length} kernel vs plain {max(bank_errs):.3e}; metrics d {max(d):.1e}; "
+          f"wall {out['walls_s']['render plain']:.2f} s "
           f"(first call {out['walls_s']['render plain (first)']:.2f} s; read "
           f"{split['read_s']:.3f} s, render() {split['render_s']:.3f} s, clip and write "
           f"{split['clip_and_write_s']:.3f} s)", flush=True)
@@ -517,8 +550,15 @@ def cli_phase(np, torch, bank, work: str, device: str = "cuda") -> dict:
                              wavio.encode_pcm16(np.clip(outs[i], -0.9999, 0.9999))),
               f"sweep: file {i} differs from render_batch row {i}")
     del outs
+    sweep = [pipeline.build_internal_setup(dataclasses.replace(p, diffusion=v), RATE, n)
+             for v in values]
+    check(all(s.ir_shape == setup.ir_shape for s in sweep), "sweep: the IR shape changed")
+    errs = hold_bank(np, torch, bank, "cli sweep", setup.ir_shape,
+                     ir_synth.IRScalars.stack([s.ir_scalars for s in sweep]), [3] * 3)
+    bank_errs = [max(a, b) for a, b in zip(bank_errs, errs)]
     print(f"[6 cli] render --sweep diffusion=0.2,0.5,0.8: 3 files = render_batch rows bit for "
-          f"bit; wall {out['walls_s']['render sweep']:.2f} s", flush=True)
+          f"bit; bank B=3 kernel vs plain {max(errs):.3e}; wall "
+          f"{out['walls_s']['render sweep']:.2f} s", flush=True)
 
     # --- a directory: 24 clips (a session's stems) through one hall ---
     os.makedirs(path("stems"))
@@ -557,6 +597,17 @@ def cli_phase(np, torch, bank, work: str, device: str = "cuda") -> dict:
               f"IR - 1; metrics vs the meter on the files: lufs d {worst[0]:.1e} LU, peak d "
               f"{worst[1]:.1e} dB, rms d {worst[2]:.1e} dB", flush=True)
     out["render_dir_audio_s"] = audio_s
+    # the bank at render_dir's shape and seeds: default hall, micro-batches
+    # of 8 with seeds 0-7, 8-15 and 16-23 (the binaural run's 8 stems: 0-7)
+    dir_setup = pipeline.build_internal_setup(RenderParams(), RATE, RATE)
+    for base in (0, 8, 16):
+        errs = hold_bank(np, torch, bank, f"cli render_dir seeds {base}-{base + 7}",
+                         dir_setup.ir_shape, dir_setup.ir_scalars, range(base, base + 8))
+        bank_errs = [max(a, b) for a, b in zip(bank_errs, errs)]
+    out["bank_max_abs_err"] = max(bank_errs)
+    print(f"[6 cli] bank at the CLI shapes (B=1, B=3 x {setup.ir_shape.length}; B=8 x "
+          f"{dir_setup.ir_shape.length}): kernel vs plain max-abs early {bank_errs[0]:.3e} "
+          f"late {bank_errs[1]:.3e} (tol {BANK_TOL})", flush=True)
 
     # --- the analyzer ---
     res = json.loads(cli("analyze --true-peak", analyzer.main,
@@ -575,8 +626,11 @@ def cli_phase(np, torch, bank, work: str, device: str = "cuda") -> dict:
     cli("convert --samplerate 48000", analyzer.main,
         ["convert", path("at44k1.wav"), path("at48k.wav"), "--samplerate", "48000"], 0)
     x44 = torch.from_numpy(wavio.read(path("at44k1.wav"))[0]).to(dev)
+    # with the caller's TF32 on: resample_poly turns it off for its conv alone
+    torch.backends.cudnn.allow_tf32 = True
     card_rs = resample_poly(x44, 48000, 44100)
-    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 on after resample_poly")
+    check(torch.backends.cudnn.allow_tf32, "resample_poly left the caller's cuDNN TF32 changed")
+    torch.backends.cudnn.allow_tf32 = False
     cpu_rs = resample_poly(x44.cpu(), 48000, 44100)
     rs_err = float((card_rs.cpu() - cpu_rs).abs().max())
     check(rs_err <= 1e-5, f"resample_poly: card vs CPU {rs_err}")
@@ -618,7 +672,7 @@ def main() -> int:
     from audio_raytracing_studio_tpu_torch.utils import kernels
 
     # the render path runs no matmul and no cuDNN convolution, phase 6's
-    # resample_poly one cuDNN conv1d (which turns TF32 off itself); pin both off
+    # resample_poly one cuDNN conv1d (which turns TF32 off for itself); pin both off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     check(not torch.backends.cuda.matmul.allow_tf32, "matmul TF32 still on")
@@ -655,16 +709,7 @@ def main() -> int:
         ("cathedral", cathedral.ir_shape, cathedral.ir_scalars, [0, 7, 2**31, 0xFFFFFFFF]),
         ("split1", split1, bench_setup.ir_scalars, [2**31 + 5]),
     ):
-        seeds_t = torch.from_numpy(ir_synth.seeds_to_int32(seeds)).cuda()
-        scal = ir_sc.table(len(seeds), "cuda")
-        before = bank.launch_count
-        kern = bank._rir_block_cuda(seeds_t, scal, shape)
-        plain = bank._rir_block_plain(seeds_t, scal, shape)
-        torch.cuda.synchronize()
-        check(bank.launch_count == before + 1, "bank call was not counted once")
-        errs = [(k - q).abs().max().item() for k, q in zip(kern, plain)]
-        check(all(np.isfinite(errs)) and max(errs) <= BANK_TOL,
-              f"{label} bank kernel vs plain {errs} > {BANK_TOL}")
+        errs = hold_bank(np, torch, bank, label, shape, ir_sc, seeds)
         bank_err = max(bank_err, *errs)
         print(f"[3 bank] {label}: B={len(seeds)} length={shape.length} split="
               f"{shape.split_point} tiles="
@@ -857,6 +902,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     main_launches += cli["launches"]
+    bank_err = max(bank_err, cli["bank_max_abs_err"])
     print("[6 timing] " + json.dumps({"card": card, "nvidia_smi": smi, **cli}), flush=True)
 
     foreign = sorted(m for m in sys.modules

@@ -5,7 +5,7 @@ Tolerances: LUFS within 0.01 LU and peaks within 0.01 dB (PARITY.md item
 2); written PCM16 within 1 LSB; ``resample_poly`` ≤ 1e-5 max-abs — one
 float32 correlation with the same float32 taps, summed in another order
 (the port computes only the kept outputs, the JAX package convolves the
-zero-stuffed signal).
+zero-stuffed signal).  Each comparison records its gap with ``record_property`` (``--junitxml`` keeps them).
 """
 
 import json
@@ -60,7 +60,7 @@ def pcm(path):
 
 @pytest.mark.parametrize("name", ["music.wav", "quiet.wav", "six.wav", "at44k1.wav",
                                   "silent.wav", "short.wav"])
-def test_analyze_matches_jax(files, capsys, name):
+def test_analyze_matches_jax(files, capsys, record_property, name):
     rc_t, cap_t = run(tcli.main, ["analyze", files / name, "--true-peak", "--device", "cpu"],
                       capsys)
     rc_j, cap_j = run(jcli.main, ["analyze", files / name, "--true-peak"], capsys)
@@ -70,14 +70,16 @@ def test_analyze_matches_jax(files, capsys, name):
     for k in want:
         if isinstance(want[k], float):
             tol = LU_TOL if k == "LUFS" else DB_TOL
-            assert abs(got[k] - want[k]) <= tol, (k, got[k], want[k])
+            gap = 0.0 if got[k] == want[k] else abs(got[k] - want[k])
+            record_property(k, gap)
+            assert gap <= tol, (k, got[k], want[k])
         else:
             assert got[k] == want[k]
 
 
 @pytest.mark.parametrize("name, target", [("music.wav", -16.0), ("quiet.wav", -23.0),
                                           ("six.wav", -14.0)])
-def test_normalize_matches_jax(files, tmp_path, capsys, name, target):
+def test_normalize_matches_jax(files, tmp_path, capsys, record_property, name, target):
     rc_t, cap_t = run(tcli.main, ["normalize", files / name, tmp_path / "t.wav", "--target",
                                   str(target), "--device", "cpu"], capsys)
     rc_j, cap_j = run(jcli.main, ["normalize", files / name, tmp_path / "j.wav", "--target",
@@ -86,10 +88,13 @@ def test_normalize_matches_jax(files, tmp_path, capsys, name, target):
     got, want = json.loads(cap_t.out), json.loads(cap_j.out)
     assert set(got) == set(want) and got["clipped"] == want["clipped"]
     for k in ("input_lufs", "gain_db", "output_lufs"):
+        record_property(k, abs(got[k] - want[k]))
         assert abs(got[k] - want[k]) <= LU_TOL, (k, got, want)
     a, rate = pcm(tmp_path / "t.wav")
     b, want_rate = pcm(tmp_path / "j.wav")
-    assert rate == want_rate and a.shape == b.shape and np.abs(a - b).max() <= 1
+    assert rate == want_rate and a.shape == b.shape
+    record_property("pcm16_lsb", int(np.abs(a - b).max()))
+    assert np.abs(a - b).max() <= 1
 
 
 @pytest.mark.parametrize("name", ["silent.wav", "short.wav"])
@@ -106,7 +111,7 @@ def test_normalize_unmeasurable_fails_like_jax(files, tmp_path, capsys, name):
     ("music.wav", 16000, []), ("short.wav", 44100, []),
     ("at44k1.wav", 48000, ["--bitrate", "160"]),  # accepted and unused for WAV, as in JAX
 ])
-def test_convert_matches_jax(files, tmp_path, capsys, src, rate_out, extra):
+def test_convert_matches_jax(files, tmp_path, capsys, record_property, src, rate_out, extra):
     rc_t, _ = run(tcli.main, ["convert", files / src, tmp_path / "t.wav", "--samplerate",
                               rate_out, *extra, "--device", "cpu"], capsys)
     rc_j, _ = run(jcli.main, ["convert", files / src, tmp_path / "j.wav", "--samplerate",
@@ -115,6 +120,7 @@ def test_convert_matches_jax(files, tmp_path, capsys, src, rate_out, extra):
     a, rate = pcm(tmp_path / "t.wav")
     b, want_rate = pcm(tmp_path / "j.wav")
     assert rate == want_rate == rate_out and a.shape == b.shape
+    record_property("pcm16_lsb", int(np.abs(a - b).max()))
     assert np.abs(a - b).max() <= 1
 
 
@@ -130,7 +136,7 @@ def test_convert_to_other_containers_not_supported(files, tmp_path, capsys, targ
 @pytest.mark.parametrize("channels", [1, 2])
 @pytest.mark.parametrize("rate_in, rate_out", [(44100, 48000), (48000, 16000), (8000, 44100),
                                                (48000, 44100), (16000, 16000)])
-def test_resample_poly_matches_jax(rate_in, rate_out, channels):
+def test_resample_poly_matches_jax(record_property, rate_in, rate_out, channels):
     x = signal(rate_in // 10 + 7, channels, seed=rate_in + channels)
     if channels == 1:
         x = x[:, 0]
@@ -138,7 +144,9 @@ def test_resample_poly_matches_jax(rate_in, rate_out, channels):
     want = np.asarray(jresample.resample_poly(x, rate_out, rate_in))
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert got.shape[0] == -(-x.shape[0] * rate_out // rate_in)
-    assert np.abs(got.numpy() - want).max() <= RESAMPLE_TOL
+    err = float(np.abs(got.numpy() - want).max())
+    record_property("max_abs", err)
+    assert err <= RESAMPLE_TOL
 
 
 @pytest.mark.parametrize("n", [2, 3, 40])

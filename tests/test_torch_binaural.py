@@ -4,7 +4,7 @@ the CPU, and the behavioral checks of tests/test_binaural.py on the port.
 Tolerances: ≤ 1e-5 max-abs on the ears — one float32 rfft/irfft pair at the
 same power-of-two size in two FFT libraries and a channel sum in another
 order; ≤ 1e-6 on the complex64 ear-filter table, built in float64 on the
-device by the port and by NumPy in the JAX package.
+device by the port and by NumPy in the JAX package.  Each comparison records its gap with ``record_property`` (``--junitxml`` keeps them).
 """
 
 import numpy as np
@@ -29,16 +29,18 @@ def surround(n, channels, seed):
 
 @pytest.mark.parametrize("rate", [16000, 48000, 384000])
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_matches_jax(layout, rate):
+def test_matches_jax(record_property, layout, rate):
     x = surround(2400, config.CHANNEL_LAYOUTS[layout]["channels"], seed=rate)
     got = tbin.binauralize(x, rate, layout, device="cpu")
     want = np.asarray(jbin.binauralize(x, rate, layout))
     assert got.dtype == np.float32 and got.shape == want.shape == (2400, 2)
-    assert np.abs(got - want).max() <= TOL
+    err = float(np.abs(got - want).max())
+    record_property("max_abs", err)
+    assert err <= TOL
 
 
 @pytest.mark.parametrize("n", [4700, 4800, 4850])
-def test_lengths_of_one_bucket_match_jax(n):
+def test_lengths_of_one_bucket_match_jax(record_property, n):
     """4700, 4800 and 4850 samples share the 24,000-sample bucket at 48 kHz,
     hence one transform size; each output keeps its own length."""
     rate = 48000
@@ -50,19 +52,23 @@ def test_lengths_of_one_bucket_match_jax(n):
     got = tbin.binauralize(x, rate, "5.1 (Standard)", device="cpu")
     want = np.asarray(jbin.binauralize(x, rate, "5.1 (Standard)"))
     assert got.shape == (n, 2) and np.abs(got).max() > 0.1
-    assert np.abs(got - want).max() <= TOL
+    err = float(np.abs(got - want).max())
+    record_property("max_abs", err)
+    assert err <= TOL
 
 
 @pytest.mark.parametrize("rate, n", [(16000, 4800), (48000, 4800), (384000, 2048),
                                      (44100, 100)])
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_table_matches_jax(layout, rate, n):
+def test_table_matches_jax(record_property, layout, rate, n):
     names = tuple(config.CHANNEL_LAYOUTS[layout]["names"])
     nfft = tbin.transform_size(names, n, rate)
     want = jbin._binaural_table(names, rate, nfft)
     got = tbin._binaural_table(names, rate, nfft, "cpu")
     assert got.dtype == torch.complex64 and tuple(got.shape) == want.shape
-    assert np.abs(got.numpy() - want).max() <= TABLE_TOL
+    err = float(np.abs(got.numpy() - want).max())
+    record_property("max_abs", err)
+    assert err <= TABLE_TOL
 
 
 def click_in_channel(ch, channels=6, n=4800, rate=48000):

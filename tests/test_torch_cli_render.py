@@ -4,7 +4,7 @@ files, on the CPU (``--device cpu``; the JAX CLI runs on JAX's CPU backend).
 Tolerances: the written PCM16 within 1 LSB — the renders agree to ~1e-6
 (tests/test_torch_pipeline.py), so a sample near a rounding boundary may
 land one step apart; metrics within 0.01 LU and 0.01 dB (PARITY.md item 2);
-the same JSON keys and the same exit codes.
+the same JSON keys and the same exit codes.  Each comparison records its gap with ``record_property`` (``--junitxml`` keeps them).
 """
 
 import json
@@ -81,17 +81,18 @@ def pcm(path):
     return np.rint(data * 32768.0).astype(np.int32), rate
 
 
-def check_metrics(got, want):
+def check_metrics(got, want, record_property):
     assert set(got) == set(want)
     for k in got:
         if np.isinf(want[k]):
             assert got[k] == want[k]
         else:
+            record_property(k, abs(got[k] - want[k]))
             assert abs(got[k] - want[k]) <= (LU_TOL if k == "lufs" else DB_TOL), (k, got, want)
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_matches_jax_cli(files, monkeypatch, capsys, case):
+def test_matches_jax_cli(files, monkeypatch, capsys, record_property, case):
     argv, n_out = CASES[case]
     sweep = n_out > 1 or "--sweep" in argv
     t_out = f"t_{case}" + ("_{i}" if sweep else "") + ".wav"
@@ -103,6 +104,7 @@ def test_matches_jax_cli(files, monkeypatch, capsys, case):
         got, rate = pcm(files / t_out.format(i=i))
         want, want_rate = pcm(files / j_out.format(i=i))
         assert rate == want_rate and got.shape == want.shape
+        record_property(f"pcm16_lsb_{i}", int(np.abs(got - want).max()))
         assert np.abs(got - want).max() <= 1
     if "--json" in argv:
         res_t, res_j = json.loads(cap_t.out), json.loads(cap_j.out)
@@ -110,7 +112,7 @@ def test_matches_jax_cli(files, monkeypatch, capsys, case):
         for a, b in zip(res_t, res_j):
             assert set(a) == set(b)
             a_m, b_m = a.pop("metrics"), b.pop("metrics")
-            check_metrics(a_m, b_m)
+            check_metrics(a_m, b_m, record_property)
             assert a["output"].replace("t_", "j_") == b["output"]
             assert {k: v for k, v in a.items() if k != "output"} == \
                 {k: v for k, v in b.items() if k != "output"}

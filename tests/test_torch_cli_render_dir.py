@@ -5,7 +5,7 @@ Three clips of different lengths (two length buckets at 16 kHz, one of
 them split into micro-batches by ``--batch 2``), one of them AIFF with the
 same stem as a WAV (unique output names), plus files both renderers skip.
 Tolerances: each written PCM16 within 1 LSB, metrics within 0.01 LU and
-0.01 dB, the same JSON keys and exit codes.
+0.01 dB, the same JSON keys and exit codes.  Each comparison records its gap with ``record_property`` (``--junitxml`` keeps them).
 """
 
 import json
@@ -68,12 +68,13 @@ def pcm(path):
     return np.rint(data * 32768.0).astype(np.int32), rate
 
 
-def check_metrics(got, want):
+def check_metrics(got, want, record_property):
     assert set(got) == set(want)
     for k in got:
         if np.isinf(want[k]):
             assert got[k] == want[k]
         else:
+            record_property(k, abs(got[k] - want[k]))
             assert abs(got[k] - want[k]) <= (LU_TOL if k == "lufs" else DB_TOL), (k, got, want)
 
 
@@ -83,7 +84,7 @@ def check_metrics(got, want):
      "--bass-gain", "1.4"],
     ["--layout", "Stereo", "--room-size", "50", "--treble-gain", "0.7"],
 ])
-def test_matches_jax(indir, tmp_path, capsys, flags):
+def test_matches_jax(indir, tmp_path, capsys, record_property, flags):
     argv = ["--batch", "2", *flags]
     rc_t, cap_t = run(tcli.main, [indir, tmp_path / "t", *argv, "--device", "cpu"], capsys)
     rc_j, cap_j = run(jcli.main, [indir, tmp_path / "j", *argv], capsys)
@@ -96,6 +97,7 @@ def test_matches_jax(indir, tmp_path, capsys, flags):
         want, want_rate = pcm(tmp_path / "j" / name)
         assert rate == want_rate == RATE and got.shape == want.shape
         assert got.shape[1] == (2 if "--binaural" in flags or "Stereo" in flags else 6)
+        record_property(f"pcm16_lsb_{name}", int(np.abs(got - want).max()))
         assert np.abs(got - want).max() <= 1
     for skipped in ("corrupt.wav", "empty.wav"):
         assert f"skipping {skipped}" in cap_t.err and f"skipping {skipped}" in cap_j.err
@@ -107,7 +109,7 @@ def test_matches_jax(indir, tmp_path, capsys, flags):
         for a, b in zip(res_t["clips"], res_j["clips"]):
             assert a["output"].replace(str(tmp_path / "t"), "") == \
                 b["output"].replace(str(tmp_path / "j"), "")
-            check_metrics(a["metrics"], b["metrics"])
+            check_metrics(a["metrics"], b["metrics"], record_property)
     else:
         assert cap_t.out.splitlines()[-1].startswith("# 3 clips")
 

@@ -380,12 +380,18 @@ def test_binaural_on_card_matches_cpu(cuda):
 
 def test_resample_poly_on_card_matches_cpu(cuda):
     """60 s of stereo, 44.1 → 48 kHz (160 phases, stride 147) through cuDNN
-    with TF32 off, against the CPU, ≤ 1e-5."""
+    with TF32 off, against the CPU, ≤ 1e-5 — with the caller's TF32 on, which
+    resample_poly turns off for its convolution alone and gives back."""
     from audio_raytracing_studio_tpu_torch.ops.resample import resample_poly
 
     x = (np.random.default_rng(7).standard_normal((60 * 44100, 2)) * 0.2).astype(np.float32)
-    got = resample_poly(torch.from_numpy(x).to(cuda), 48000, 44100)
-    assert not torch.backends.cudnn.allow_tf32
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = resample_poly(torch.from_numpy(x).to(cuda), 48000, 44100)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     want = resample_poly(x, 48000, 44100)
     assert tuple(got.shape) == tuple(want.shape) == (60 * 48000, 2)
     assert float((got.cpu() - want).abs().max()) <= 1e-5
