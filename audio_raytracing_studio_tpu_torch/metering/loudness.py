@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.convolution import fast_fft_length
+from ..ops.ir_synth import to_device
 from . import kweighting as kw
 
 K_FIR_LENGTH = 8192
@@ -61,7 +62,7 @@ def k_weight(signal: torch.Tensor, rate: int) -> torch.Tensor:
     the fast grid ≥ n + 8191 (exact for linear convolution).
     """
     n = signal.shape[-1]
-    fir = torch.from_numpy(k_weighting_fir(int(rate)).astype(np.float32)).to(signal.device)
+    fir = to_device(k_weighting_fir(int(rate)).astype(np.float32), signal.device)
     nfft = fast_fft_length(n + fir.shape[0] - 1)
     out = torch.fft.irfft(
         torch.fft.rfft(signal, n=nfft) * torch.fft.rfft(fir, n=nfft), n=nfft
@@ -86,8 +87,8 @@ def block_mean_squares(
         return torch.zeros(signal.shape[:-1] + (0,), dtype=torch.float64, device=signal.device)
     energy = torch.cumsum(signal.to(torch.float64).square(), dim=-1)
     prefix = torch.nn.functional.pad(energy, (1, 0))
-    lo_t = torch.from_numpy(lo).to(signal.device)
-    hi_t = torch.from_numpy(hi).to(signal.device)
+    lo_t = to_device(lo, signal.device)
+    hi_t = to_device(hi, signal.device)
     if valid_len is None:
         block_energy = prefix[..., hi_t] - prefix[..., lo_t]
     else:
@@ -141,7 +142,7 @@ def integrated_loudness(
         signal = signal[None, :]
     if weights is None:
         weights = kw.channel_weights(signal.shape[-2])  # LFE excluded (BS.1770-4)
-    w = torch.from_numpy(np.asarray(weights, dtype=np.float64)).to(signal.device)
+    w = to_device(np.asarray(weights, dtype=np.float64), signal.device)
     z = block_mean_squares(k_weight(signal, rate), rate)
     if z.shape[-1] == 0:
         return torch.full(signal.shape[:-2], -torch.inf, device=signal.device)
@@ -239,7 +240,7 @@ def oversampled_true_peak_dbfs(
     """Inter-sample true peak of (..., n) via polyphase 4× windowed-sinc
     interpolation (BS.1770 Annex 2), evaluated only where the full tap window
     fits — running off the edge rings against the zero padding."""
-    phases = torch.from_numpy(_polyphase_kernels(factor, taps_per_phase)).to(data.device)
+    phases = to_device(_polyphase_kernels(factor, taps_per_phase), data.device)
     n = data.shape[-1]
     if n < taps_per_phase:
         data = torch.nn.functional.pad(data, (0, taps_per_phase - n))

@@ -9,7 +9,9 @@ handed through its fields.
   to both packages;
 - ``params_from_jax`` and ``draws_from_jax`` turn the JAX package's
   ``RenderParams`` and ``IRDraws`` (frozen dataclasses) into this package's,
-  field by field through ``dataclasses.asdict``.
+  field by field through ``dataclasses.asdict``;
+- ``job_from_jax`` turns the JAX package's serving ``RenderJob`` into this
+  package's, so tests can hand both render services the same work.
 
 ``draws_from_numpy`` mirrors the JAX package's ``ops.ir_synth.draws_to_device``
 (the oracle-parity injection for the plain ``synthesize``); ``bank_draws``
@@ -57,6 +59,23 @@ def params_from_jax(p) -> RenderParams:
 def draws_from_jax(d) -> IRDraws:
     """The JAX package's ``IRDraws`` → this package's (same arrays)."""
     return IRDraws(**dataclasses.asdict(d))
+
+
+def job_from_jax(job):
+    """The JAX package's ``serving.RenderJob`` → this package's: the same
+    audio and IR arrays (shared, not copied), rate, seed and metrics flag,
+    the params through ``params_from_jax``."""
+    from ..serving.batcher import RenderJob  # imports this package's pipeline
+
+    return RenderJob(
+        audio=job.audio,
+        rate=job.rate,
+        params=params_from_jax(job.params),
+        seed=job.seed,
+        with_metrics=job.with_metrics,
+        external_ir=job.external_ir,
+        external_ir_rate=job.external_ir_rate,
+    )
 
 
 def _check_taps(draws) -> int:

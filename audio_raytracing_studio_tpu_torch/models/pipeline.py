@@ -55,7 +55,7 @@ class MixScalars(NamedTuple):
         """Per-clip host scalars → one MixScalars of (B,) float32 tensors."""
         return cls(
             *(
-                torch.from_numpy(np.asarray(col, dtype=np.float32)).to(device)
+                ir_synth.to_device(np.asarray(col, dtype=np.float32), device)
                 for col in zip(*entries)
             )
         )
@@ -272,7 +272,7 @@ def prepare_external_ir(ir, ir_rate: int, target_rate: int, device="cpu") -> tor
         raise ValueError("External IR is empty.")
     if ir.shape[1] != 2:
         raise ValueError("External IR must be stereo.")
-    ir_t = torch.from_numpy(np.ascontiguousarray(ir)).to(device)
+    ir_t = ir_synth.to_device(np.ascontiguousarray(ir), device)
     if ir_rate != target_rate:
         from ..ops.resample import resample_fft
 

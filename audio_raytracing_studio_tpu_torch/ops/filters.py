@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import config
+from .ir_synth import to_device
 
 
 def _air_ramp_np(n: int, rate: int) -> np.ndarray:
@@ -54,7 +55,7 @@ def _curve(name: str, n: int, rate: int) -> np.ndarray:
 
 
 def _curve_tensor(name: str, n: int, rate: int, device) -> torch.Tensor:
-    return torch.from_numpy(_curve(name, n, rate).copy()).to(device)
+    return to_device(_curve(name, n, rate).copy(), device)
 
 
 def _circular_gain(signal: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -135,7 +136,9 @@ def apply_shelf_eq_padded(
     out = torch.zeros_like(signal)
     lengths = [int(n0) for n0 in lengths]
     for n0 in sorted(set(lengths)):
-        idx = torch.tensor([b for b, m in enumerate(lengths) if m == n0], device=signal.device)
+        idx = to_device(
+            np.asarray([b for b, m in enumerate(lengths) if m == n0], np.int64), signal.device
+        )
         out[idx, :, :n0] = apply_shelf_eq(
             signal[idx, :, :n0], rate, bass_gain[idx], treble_gain[idx]
         )

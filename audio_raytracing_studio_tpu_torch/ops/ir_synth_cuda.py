@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,9 +47,18 @@ N_STATS = 8  # per-(entry, tile) partials — see csrc/rir_bank.cu
 MAX_SMOOTH_WIDTH = config.NOISE_SMOOTH_CLIP[1]  # csrc/rir_bank.cu kMaxWidth
 
 # Bank calls that launched the CUDA kernels in this process (one per call,
-# both passes together); the plain paths never count.
+# both passes together); the plain paths never count.  Render threads (the
+# serving worker among them) launch concurrently, so ``_count`` adds under a
+# lock; reading a count or setting it to 0 is a plain attribute access.
 launch_count = 0  # hash draws
 injected_launch_count = 0  # injected draws
+_count_lock = threading.Lock()
+
+
+def _count(name: str) -> None:
+    """Add one launch to the module counter ``name``."""
+    with _count_lock:
+        globals()[name] += 1
 
 
 def n_tiles(shape: IRShape) -> int:
@@ -303,7 +313,6 @@ def _rir_block_cuda(
     """Launch the hash-draws bank of csrc/rir_bank.cu (stats pass, then write
     pass) → final early, late (B, length).  ``unit_scales`` (checks only)
     writes the samples before the per-entry scales."""
-    global launch_count
     if seeds.device.type != "cuda" or scal.device != seeds.device:
         raise ValueError(
             f"rir_bank needs seeds and scalars on one CUDA device, got "
@@ -333,7 +342,7 @@ def _rir_block_cuda(
         )
     if err != 0:
         raise RuntimeError(f"rir_bank launch failed with CUDA error {err}")
-    launch_count += 1
+    _count("launch_count")
     return early, late
 
 
@@ -367,7 +376,6 @@ def _rir_bank_cuda(
     early, late (B, length) and, for checks, the (B,) bool flags of the
     entries that kept their raw noise.  ``unit_scales`` (checks only)
     writes the samples before the per-entry scales."""
-    global injected_launch_count
     device = delays.device
     batch = delays.shape[0]
     if device.type != "cuda" or any(x.device != device for x in (strengths, noise, scal)):
@@ -407,7 +415,7 @@ def _rir_bank_cuda(
         )
     if err != 0:
         raise RuntimeError(f"rir_bank_injected launch failed with CUDA error {err}")
-    injected_launch_count += 1
+    _count("injected_launch_count")
     return early, late, raw.bool()
 
 

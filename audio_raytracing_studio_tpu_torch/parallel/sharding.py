@@ -8,6 +8,14 @@ all clips at once, and optionally meters them (``with_metrics``) and
 quantizes to PCM16 on the device.  Value-parameter sweeps (air, position,
 mix, EQ, levels) share a batch; shape-determining parameters (hall type,
 room size, z position, clip length, rate, layout) must match across it.
+
+On a card nothing between the upload and the copy down makes the host wait:
+the clips and every small table go up through pinned buffers with
+asynchronous copies, the result comes down into pinned memory the same way,
+and an event marks its end — ``render_batch(async_results=True)`` returns a
+``fetch()`` that waits on that event alone (``_finalize_render``), which is
+what lets the serving batcher overlap one group's copies with the next
+group's render.  All of it is enqueued on the caller's current stream.
 """
 
 from __future__ import annotations
@@ -85,11 +93,86 @@ def _meter_and_quantize(out: torch.Tensor, rate: int, with_metrics: bool, pcm16:
         else:
             # block counts are float64 host math (kweighting.block_count)
             blocks = [kw.block_count(v, rate) for v in valid_lens]
-            as_t = lambda xs: torch.tensor(xs, dtype=torch.int64, device=out.device)  # noqa: E731
+            as_t = lambda xs: ir_synth.to_device(np.asarray(xs, np.int64), out.device)  # noqa: E731
             metrics = loudness.audio_metrics_masked(out, rate, as_t(valid_lens), as_t(blocks))
     if pcm16:
         out = pipeline.quantize_pcm16(out)
     return out, metrics
+
+
+def staging_clips(batch: int, n: int, channels: int, device) -> np.ndarray:
+    """An uninitialised (batch, n, channels) float32 host array to stack a
+    batch of clips in — page-locked when ``device`` is a card, so that
+    ``render_batch`` uploads it as it lies, with no second host copy (a
+    mono batch goes up at half the bytes and is duplicated on the device).
+
+    Whoever passes such an array to ``render_batch`` must leave it alive and
+    unchanged until that render's result has been fetched: the upload reads
+    it asynchronously.
+    """
+    pinned = torch.device(device).type == "cuda"
+    return torch.empty((batch, n, channels), dtype=torch.float32, pin_memory=pinned).numpy()
+
+
+def _stage_clips(audio: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host clips (B, N, C) float32 → (B, 2, N) on ``dev``: mono duplicated,
+    more than two channels cut to the first two
+    (``pipeline._ensure_stereo_host``'s rule, raytracer_studio.py:1020-1022).
+    To a card the clips go as they lie, through page-locked memory (their own,
+    if ``staging_clips`` made the array, else one staging copy) and an
+    asynchronous copy; the transpose and the mono duplication run on the
+    device."""
+    staged = torch.from_numpy(audio[:, :, :2])
+    if dev.type == "cuda" and not (staged.is_contiguous() and staged.is_pinned()):
+        pinned = torch.empty(staged.shape, dtype=torch.float32, pin_memory=True)
+        staged = pinned.copy_(staged)
+    on_dev = staged.to(dev, non_blocking=True).permute(0, 2, 1)
+    return on_dev.expand(-1, 2, -1).contiguous()
+
+
+def _finalize_render(out: torch.Tensor, metrics: Optional[dict], async_results: bool):
+    """Device → host completion of an enqueued batch render — port of
+    ``_finalize_render`` in the JAX package's ``parallel/sharding.py``.
+
+    ``out`` (B, channels, len_out) and the (B,) metric tensors are
+    transposed / stacked on the device and, on a card, copied into pinned
+    host buffers without waiting; an event recorded behind the copies marks
+    their end.  ``fetch()`` waits on that event only, then hands out the
+    (B, len_out, channels) array (a view of the pinned buffer, which lives
+    as long as the array) and one dict of floats per clip.  With
+    ``async_results`` the caller decides when to pay that wait, otherwise it
+    is paid here.  On the CPU there is nothing to wait for.
+    """
+    batch = out.shape[0]
+    out = out.permute(0, 2, 1).contiguous()
+    table = keys = None
+    if metrics is not None:
+        keys = list(metrics)
+        table = torch.stack([metrics[k].reshape(batch) for k in keys])
+    done = None
+    if out.device.type == "cuda":
+        def down(t):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return host.copy_(t, non_blocking=True)
+
+        # ``out`` and ``table`` were allocated on this stream and the copies
+        # are enqueued on it, so the allocator may hand their memory on in
+        # stream order as soon as these names go
+        out = down(out)
+        table = None if table is None else down(table)
+        done = torch.cuda.Event()
+        done.record()
+
+    def fetch():
+        if done is not None:
+            done.synchronize()
+        result = out.numpy()
+        if table is None:
+            return result
+        rows = dict(zip(keys, table.tolist()))
+        return result, [{k: float(v[i]) for k, v in rows.items()} for i in range(batch)]
+
+    return fetch if async_results else fetch()
 
 
 def render_batch(
@@ -106,6 +189,7 @@ def render_batch(
     clip_lengths: Optional[Sequence[int]] = None,
     pcm16_output: bool = False,
     real_batch: Optional[int] = None,
+    async_results: bool = False,
     device="cuda",
 ):
     """Render a batch of clips (B, N) or (B, N, C) on one device.
@@ -128,6 +212,11 @@ def render_batch(
     ``real_batch``: the first ``real_batch`` rows are real jobs; pad rows are
     dropped on the device before the copy to the host.
 
+    ``async_results=True`` returns a zero-argument ``fetch()`` instead of the
+    result: the whole render and its copy to the host are already enqueued
+    on the current stream and no host thread has waited for them; ``fetch()``
+    waits for the copy and returns what the synchronous call returns.
+
     Returns (B, len_out, channels) float32 (int16 with ``pcm16_output``) —
     plus a list of per-clip metric dicts with ``with_metrics``.
     """
@@ -149,9 +238,8 @@ def render_batch(
     if clip_lengths is not None and len(clip_lengths) != batch:
         raise ValueError(f"{len(clip_lengths)} clip_lengths for batch of {batch}")
 
-    clips = [pipeline._ensure_stereo_host(audio[i]) for i in range(batch)]
-    n_in = clips[0].shape[0]
-    audio_t = torch.from_numpy(np.stack([c.T for c in clips])).to(dev)
+    n_in = audio.shape[1]
+    audio_t = _stage_clips(audio, dev)
 
     def true_lengths(ir_length: int):
         """Per-clip true output lengths, or None for an unpadded batch."""
@@ -239,7 +327,4 @@ def render_batch(
         out = out[:real_batch]
         valid_lens = None if valid_lens is None else valid_lens[:real_batch]
     out, metrics = _meter_and_quantize(out, int(rate), with_metrics, pcm16_output, valid_lens)
-    result = out.cpu().numpy().transpose(0, 2, 1)
-    if with_metrics:
-        return result, pipeline.metrics_dicts(metrics, out.shape[0])
-    return result
+    return _finalize_render(out, metrics, async_results)

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -51,8 +52,18 @@ def find_nvcc() -> str:
     )
 
 
+_build_lock = threading.Lock()
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (if not built yet) → path of the .so."""
+    """Compile ``csrc/<name>.cu`` (if not built yet) → path of the .so.
+    Threads that reach a first use together build once: the others wait and
+    find the library."""
+    with _build_lock:
+        return _build(name)
+
+
+def _build(name: str) -> Path:
     source = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
     target = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"

@@ -15,7 +15,10 @@ Drives the port's paths at full size and checks them:
   clip_lengths=..., pcm16_output=True)`` at B=48 × 60 s, EQ off and on;
 - the headless CLIs — ``cli.render``, ``cli.render_dir`` and
   ``cli.analyzer`` on WAV files, with the binaural downmix and the
-  polyphase resampler.
+  polyphase resampler;
+- the serving path — ``serving.RenderService`` (micro-batches over
+  ``render_batch(async_results=True)``, one CUDA stream per in-flight
+  group) and its HTTP job API ``serving.service.RenderHTTPService``.
 
 Phases, one line each:
 
@@ -61,7 +64,39 @@ Phases, one line each:
    within 0.05 LU) and ``convert --samplerate 48000`` of a 44.1 kHz clip
    (``resample_poly`` on the card within 1e-5 of the CPU's, the file equal
    to its PCM16); the wall time of each call, the binaural table and mix
-   and ``resample_poly`` on the card.
+   and ``resample_poly`` on the card;
+7. the render service on the card.  7a: a burst of 48 jobs (60 s, 48 kHz,
+   mono, Room, Stereo; diffusion, air, mix and positions swept, distinct
+   seeds and true lengths, metrics on) into ``RenderService(max_batch=48,
+   pcm16_output=True)``, with fast and with exact filters, at pipeline
+   depth 1 and 2, after one warm burst per stream: every job's PCM16 and
+   metrics equal, bit for bit, its row of one direct ``render_batch`` on
+   the card, depth 2 equals depth 1, and a float32 burst is held to the
+   port's CPU path on jobs 0 and 47 (≤ 1e-4); then four bursts queued at
+   once, twice (the sustained rate).  7b: 64 jobs from 8 threads —
+   20-60 s in four half-second buckets, Room and Cathedral 300, Stereo and
+   5.1, metrics on and off, some with shelf EQ at a padded length, 8
+   sharing one external IR — into ``max_batch=16, max_wait_ms=100``, cold
+   and again: every future resolves, the groups split by key, each result
+   is within 2e-5 (PCM16 1 LSB, 0.01 LU) of a solo ``render`` on the card;
+   a mono external IR, an empty clip and a clip past
+   ``streaming_threshold_s`` are refused at ``submit`` (an unknown layout
+   name is no error: it falls back to the default layout, as in the
+   reference); a cancelled queued job gives its bytes back.  7c: the HTTP
+   API on 127.0.0.1 — four 60 s WAVs and a stereo IR uploaded; a params
+   job, a preset job and an external-IR job polled to the end, their WAV
+   bytes equal to ``wavio.write`` of the direct render's PCM16; a queued
+   job deleted; 400, 403, 404, 409, 410 and 413 answered.  The bank is
+   held to its plain version at B in {1, 2, 4, 8, 16, 32, 48} × 72,000 and
+   at 7b's Cathedral 300 groups.  ``[7 timing]``: the walls and
+   audio-seconds per second of each arm, ``dispatch_s`` and ``fetch_s``
+   per group, one group's copies up and down by CUDA events (page-locked
+   and asynchronous against pageable and blocking), the time
+   ``render_batch(async_results=True)`` takes to return against the end of
+   ``fetch()``, the device's busy share of a depth-2 burst
+   (torch.profiler), 7b's latencies, plan-cache size and memory, a cold
+   bucket against a warm one (``warm()``), the HTTP walls.  Every wait on a
+   future has a timeout.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -90,6 +125,7 @@ BATCH = 48
 DURATION_S = 60.0
 RATE = 48000
 BANK_TOL = 2e-5  # kernel vs plain bank on the card: float round-off (sum order, expf/powf ulps)
+SERVE_TOL = 2e-5  # a served job vs its solo render on the card: the padded bucket's cuFFT lengths vs the true ones
 RENDER_TOL = 1e-4  # card vs CPU render: cuFFT vs pocketFFT float32 over 3·2^20 and 2,951,999 points
 LU_TOL = 0.01  # card vs CPU meter, masked vs trimmed (PARITY.md item 2's bound)
 DB_TOL = 0.01  # sample peak and RMS, dB
@@ -651,6 +687,581 @@ def cli_phase(np, torch, bank, work: str, device: str = "cuda") -> dict:
     return out
 
 
+def wait_all(futures, timeout: float = 300.0) -> list:
+    """Every future's result; a stuck worker ends the run with a timeout
+    error instead of a hang."""
+    return [f.result(timeout=timeout) for f in futures]
+
+
+def busy_share(torch, fn) -> dict:
+    """``fn`` under torch.profiler → the share of its wall during which at
+    least one kernel or copy ran on the card (the union of the device
+    events' intervals over the host wall of ``fn``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(spans), "the profiler saw no device events in the burst")
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + (hi - lo), a, b
+        else:
+            hi = max(hi, b)
+    busy = (busy + (hi - lo)) / 1e6  # microseconds → seconds
+    return {"wall_s": wall, "busy_s": busy, "busy_share": busy / wall,
+            "device_events": len(spans)}
+
+
+def http_call(port: int, method: str, path: str, body=None, headers=None):
+    """One request to the service on 127.0.0.1 → (status code, body bytes);
+    an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers=headers or {}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> dict:
+    """Phase 7: the serving path.  7a a burst of one job per row of
+    ``clips`` through ``RenderService`` (fast and exact filters, pipeline
+    depth 1 and 2), 7b mixed traffic from 8 threads, 7c the HTTP job API —
+    each result held to the port's own direct calls on the same device, the
+    bank to its plain version at every batch size the service dispatches.
+    Returns the timings, the counted bank launches of the service's own
+    dispatches and the bank's worst error."""
+    import socket
+    import threading
+
+    from audio_raytracing_studio_tpu_torch import RenderParams
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.ops import ir_synth
+    from audio_raytracing_studio_tpu_torch.parallel import sharding
+    from audio_raytracing_studio_tpu_torch.serving import RenderJob, RenderService
+    from audio_raytracing_studio_tpu_torch.serving.service import RenderHTTPService
+    from audio_raytracing_studio_tpu_torch.utils import wavio
+    from audio_raytracing_studio_tpu_torch.utils.presets import PresetStore
+    from audio_raytracing_studio_tpu_torch.utils.runtime import ensure_device
+
+    dev = ensure_device(device)
+    on_card = dev.type == "cuda"
+    batch, n_full = clips.shape
+    seconds = n_full / RATE
+    out = {"launches": 0, "bank_errs": [0.0, 0.0]}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def served(fn):
+        """Run ``fn`` (service traffic only) and count its bank launches."""
+        before = bank.launch_count
+        result = fn()
+        out["launches"] += bank.launch_count - before
+        return result
+
+    def drain(futures):
+        """Wait for every future in turn and keep no result."""
+        while futures:
+            futures.pop(0).result(timeout=300)
+
+    def hold(label, shape, scalars, seeds):
+        errs = hold_bank(np, torch, bank, label, shape, scalars, seeds)
+        out["bank_errs"] = [max(a, b) for a, b in zip(out["bank_errs"], errs)]
+
+    # ---------------- 7a: a burst of `batch` jobs ----------------
+    # value parameters swept per job, one shape for all; true lengths differ
+    # inside one half-second bucket, so every job is padded and trimmed
+    params = [RenderParams(target_layout="Stereo", diffusion=0.2 + 0.6 * i / (batch - 1),
+                           air_absorption=0.1 + 0.8 * i / (batch - 1),
+                           dry_wet=0.3 + 0.5 * ((7 * i) % batch) / (batch - 1),
+                           x_pos=i / (batch - 1), y_pos=((5 * i) % batch) / (batch - 1))
+              for i in range(batch)]
+    lengths = [n_full - 97 * i for i in range(batch)]
+    seeds = [1000 + 13 * i for i in range(batch)]
+    n_bucket = sharding.bucket_length(n_full, RATE)
+    check(all(sharding.bucket_length(n, RATE) == n_bucket for n in lengths),
+          "7a: the clips do not share one length bucket")
+    padded = np.zeros((batch, n_bucket), np.float32)
+    for i, n in enumerate(lengths):
+        padded[i, :n] = clips[i, :n]
+
+    def burst_jobs(offset=0):
+        return [RenderJob(clips[i, :lengths[i]], RATE, params[i], seed=seeds[i] + offset,
+                          with_metrics=True) for i in range(batch)]
+
+    setups = [pipeline.build_internal_setup(p, RATE, n_bucket) for p in params]
+    shape = setups[0].ir_shape
+    check(all(s.ir_shape == shape for s in setups), "7a: the sweep changed the IR shape")
+    ir_tail = shape.length - 1
+    rounds = 4  # the sustained run: this many bursts back to back
+    timing = {}
+    first = {}
+    for fast in (True, False):
+        mode = "fast" if fast else "exact"
+        t0 = time.perf_counter()
+        direct_q, direct_m = sharding.render_batch(
+            padded, RATE, params, seeds=seeds, fast_filters=fast, with_metrics=True,
+            clip_lengths=lengths, pcm16_output=True, device=dev)
+        timing[f"direct_{mode}_s"] = time.perf_counter() - t0
+        for depth in (1, 2):
+            # max_wait_ms: long enough that a burst submitted from one thread
+            # forms one group, whatever the host's speed
+            svc = RenderService(max_batch=batch, max_wait_ms=2000, pcm16_output=True,
+                                fast_filters=fast, pipeline_depth=depth,
+                                max_queued=rounds * batch, device=dev)
+            try:
+                for _ in range(depth):  # one warm burst per stream of the service
+                    served(lambda: wait_all([svc.submit(j) for j in burst_jobs()]))
+                sync()
+                t0 = time.perf_counter()
+                futs = [svc.submit(j) for j in burst_jobs()]
+                submit_s = time.perf_counter() - t0
+                results = served(lambda: wait_all(futs))
+                wall = time.perf_counter() - t0
+                del futs
+                st = svc.stats()
+                check(st["batch_sizes"] == [batch] * (depth + 1) and st["jobs_failed"] == 0,
+                      f"7a {mode} depth {depth}: batches {st['batch_sizes']}, "
+                      f"{st['jobs_failed']} failed")
+                for i, r in enumerate(results):
+                    real = lengths[i] + ir_tail
+                    check(r.audio.dtype == np.int16 and r.audio.shape == (real, 2),
+                          f"7a {mode} depth {depth}: job {i} {r.audio.dtype} {r.audio.shape}")
+                    check(np.array_equal(r.audio, direct_q[i, :real]),
+                          f"7a {mode} depth {depth}: job {i} differs from the direct "
+                          "render_batch row")
+                    check(r.metrics == direct_m[i],
+                          f"7a {mode} depth {depth}: job {i} metrics {r.metrics} vs "
+                          f"{direct_m[i]}")
+                    check(not direct_q[i, real:].any(), f"7a {mode}: row {i} not silent past its span")
+                if depth == 1:
+                    first[mode] = results
+                else:
+                    for i, (a, b) in enumerate(zip(first[mode], results)):
+                        check(np.array_equal(a.audio, b.audio) and a.metrics == b.metrics,
+                              f"7a {mode}: job {i} at depth 2 differs from depth 1")
+                del results
+                # sustained: `rounds` bursts queued at once, results dropped as they
+                # come; twice, since the first run still meets new staging buffers
+                for attempt in ("sustained_first_wall_s", "sustained_wall_s"):
+                    before = svc.stats()
+                    sync()
+                    t0 = time.perf_counter()
+                    served(lambda: drain([svc.submit(j) for k in range(rounds)
+                                          for j in burst_jobs(offset=k)]))
+                    timing.setdefault(f"{mode}_depth{depth}", {})[attempt] = (
+                        time.perf_counter() - t0)
+                sustained = timing[f"{mode}_depth{depth}"]["sustained_wall_s"]
+                after = svc.stats()
+                check(after["jobs_failed"] == 0
+                      and after["batch_sizes"] == [batch] * (2 * rounds + depth + 1),
+                      f"7a {mode} depth {depth}: batches {after['batch_sizes']}, "
+                      f"{after['jobs_failed']} failed")
+                n_groups = after["batches"] - before["batches"]
+                timing[f"{mode}_depth{depth}"].update({
+                    "burst_wall_s": wall,
+                    "burst_submit_s": submit_s,
+                    "burst_audio_s_per_s": sum(lengths) / RATE / wall,
+                    "sustained_jobs": rounds * batch,
+                    "sustained_groups": n_groups,
+                    "sustained_wall_s": sustained,
+                    "sustained_audio_s_per_s": rounds * sum(lengths) / RATE / sustained,
+                    "dispatch_s_per_group": (after["dispatch_s"] - before["dispatch_s"]) / n_groups,
+                    "fetch_s_per_group": (after["fetch_s"] - before["fetch_s"]) / n_groups,
+                })
+                if on_card and depth == 2 and fast:
+                    timing["busy_fast_depth2"] = busy_share(torch, lambda: served(
+                        lambda: drain([svc.submit(j) for k in range(2)
+                                       for j in burst_jobs(offset=k)])))
+                check(svc.stats()["inflight_input_bytes"] == 0, "7a: in-flight bytes left")
+            finally:
+                svc.stop()
+            print(f"[7a burst] {mode} depth {depth}: {batch} jobs x {seconds:.0f} s = direct "
+                  f"render_batch rows bit for bit (PCM16, metrics equal)"
+                  f"{', = depth 1' if depth == 2 else ''}; burst {wall:.3f} s, sustained "
+                  f"{rounds}x{batch} jobs {sustained:.3f} s", flush=True)
+        del direct_q
+        if on_card:
+            torch.cuda.empty_cache()
+    del first
+
+    # one float32 burst against the port's CPU path on the first and last job
+    svc = RenderService(max_batch=batch, max_wait_ms=2000, fast_filters=False,
+                        max_queued=batch, device=dev)
+    try:
+        results = served(lambda: wait_all([svc.submit(j) for j in burst_jobs()]))
+    finally:
+        svc.stop()
+    pick = [0, batch - 1]
+    ref = sharding.render_batch(padded[pick], RATE, [params[i] for i in pick],
+                                seeds=[seeds[i] for i in pick],
+                                clip_lengths=[lengths[i] for i in pick], device="cpu")
+    cpu_err = max(float(np.abs(results[i].audio - ref[k, :lengths[i] + ir_tail]).max())
+                  for k, i in enumerate(pick))
+    check(results[0].audio.dtype == np.float32 and cpu_err <= RENDER_TOL,
+          f"7a float32 burst vs the CPU path: {cpu_err} > {RENDER_TOL}")
+    del results, ref
+    print(f"[7a burst] float32 exact burst: jobs 0 and {batch - 1} vs the port's CPU path "
+          f"max-abs {cpu_err:.3e} (tol {RENDER_TOL})", flush=True)
+
+    if on_card:
+        # the bank at every batch size the service dispatches at, 7a's scalars
+        svc = RenderService(max_batch=batch, device=dev, start=False)
+        sizes = svc.bucket_sizes()
+        svc.stop()
+        for b in sizes:
+            hold(f"serving B={b}", shape,
+                 ir_synth.IRScalars.stack([s.ir_scalars for s in setups[:b]]), seeds[:b])
+        print(f"[7 bank] B in {sizes} x {shape.length}: kernel vs plain max-abs early "
+              f"{out['bank_errs'][0]:.3e} late {out['bank_errs'][1]:.3e} (tol {BANK_TOL})",
+              flush=True)
+
+        # async_results: the call returns before the card is done (the second
+        # of two calls: the first meets a new staging buffer)
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            fetch = sharding.render_batch(padded, RATE, params, seeds=seeds, with_metrics=True,
+                                          clip_lengths=lengths, pcm16_output=True,
+                                          async_results=True, device=dev)
+            timing["async_return_s"] = time.perf_counter() - t0
+            fetch()
+            timing["async_fetch_done_s"] = time.perf_counter() - t0
+            del fetch
+        # one group's copies by CUDA events around the copy alone: page-locked
+        # and asynchronous (the port's path) against pageable and blocking;
+        # and the host's share of staging (filling the page-locked buffer)
+        stereo = np.repeat(padded[:, :, None], 2, axis=2)
+        res = torch.zeros((batch, n_bucket + ir_tail, 2), dtype=torch.int16, device=dev)
+        up_pinned = torch.from_numpy(sharding.staging_clips(batch, n_bucket, 2, dev))
+        down_pinned = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+
+        def timed(fn):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            sync()
+            t0 = time.perf_counter()
+            start.record()
+            keep = fn()
+            stop.record()
+            returned = time.perf_counter() - t0
+            sync()
+            del keep
+            return {"device_ms": start.elapsed_time(stop), "returned_after_ms": 1e3 * returned}
+
+        t0 = time.perf_counter()
+        up_pinned.copy_(torch.from_numpy(stereo))
+        timing["stage_host_copy_ms"] = 1e3 * (time.perf_counter() - t0)
+        for label, fn in (
+            ("upload_pinned", lambda: up_pinned.to(dev, non_blocking=True)),
+            ("upload_pageable", lambda: torch.from_numpy(stereo).to(dev)),
+            ("download_pinned", lambda: down_pinned.copy_(res, non_blocking=True)),
+            ("download_pageable", lambda: res.cpu()),
+        ):
+            fn()
+            timing[label] = timed(fn)
+        timing["upload_mb"] = stereo.nbytes / 1e6
+        timing["download_mb"] = res.numel() * 2 / 1e6
+        del stereo, res, up_pinned, down_pinned
+        torch.cuda.empty_cache()
+
+    # ---------------- 7b: mixed traffic from 8 threads ----------------
+    rng = np.random.default_rng(0x7B)
+    cathedral = dict(hall_type="Cathedral", room_size=300.0)
+    eq = dict(bass_gain=1.6, treble_gain=0.7)
+    ir = (rng.standard_normal((int(0.4 * RATE), 2))
+          * np.exp(-np.arange(int(0.4 * RATE)) / (0.05 * RATE))[:, None] * 0.3).astype(np.float32)
+    # (count, base params, metrics, seconds as a share of the clip, with EQ every k-th job)
+    families = [
+        (16, dict(target_layout="Stereo"), True, 1.0, 4),
+        (8, dict(target_layout="5.1 (Standard)"), False, 0.755, 0),
+        (12, dict(target_layout="Stereo", **cathedral), True, 0.34, 6),
+        (8, dict(target_layout="5.1 (Standard)", **cathedral), True, 0.53, 0),
+        (8, dict(target_layout="Stereo", use_external_ir=True), True, 0.53, 0),
+        (12, dict(target_layout="Stereo"), False, 0.34, 0),
+    ]
+    jobs = []
+    for f, (count, base, metered, share, eq_every) in enumerate(families):
+        bucket = sharding.bucket_length(int(share * n_full), RATE)
+        for k in range(count):
+            n = bucket - (0 if k == 0 else int(rng.integers(1, max(2, RATE // 4))))
+            p = RenderParams(diffusion=0.3 + 0.05 * (k % 8), x_pos=(k % 5) / 4.0,
+                             **(eq if eq_every and k % eq_every == 1 else {}), **base)
+            jobs.append(RenderJob(clips[(f + k) % batch, :n], RATE, p, seed=100 * f + k,
+                                  with_metrics=metered,
+                                  external_ir=ir if p.use_external_ir else None))
+    order = rng.permutation(len(jobs))
+
+    def outside():
+        """Bytes in use on the card beside PyTorch's caching allocator."""
+        free, total = torch.cuda.mem_get_info()
+        return total - free - torch.cuda.memory_reserved()
+
+    if on_card:
+        # 7b's own plans and memory: start from an empty plan cache
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        outside_before = outside()
+        pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    svc = RenderService(max_batch=16, max_wait_ms=100, max_queued=len(jobs), device=dev)
+    try:
+        keys = {svc._prepare(j).key for j in jobs}
+        buckets = {k[1].n_in if k[0] == "internal" else k[2] for k in keys}
+        check(len(buckets) >= 3, f"7b: only {len(buckets)} length buckets")
+        futures = [None] * len(jobs)
+        submitted = [0.0] * len(jobs)
+        done = [0.0] * len(jobs)
+
+        def client(mine):
+            for j in mine:
+                submitted[j] = time.monotonic()
+                futures[j] = svc.submit(jobs[j])
+                futures[j].add_done_callback(
+                    lambda _f, j=j: done.__setitem__(j, time.monotonic()))
+
+        def traffic():
+            threads = [threading.Thread(target=client, args=(order[t::8],)) for t in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+                check(not t.is_alive(), "7b: a client thread is stuck")
+            return wait_all(futures)
+
+        t0 = time.perf_counter()
+        results = served(traffic)
+        wall = time.perf_counter() - t0
+        st = svc.stats()
+        lat = sorted(d - s for d, s in zip(done, submitted))
+        # the same traffic again: every cuFFT plan and allocator block is there now
+        t0 = time.perf_counter()
+        served(traffic)
+        warm_wall = time.perf_counter() - t0
+        warm_lat = sorted(d - s for d, s in zip(done, submitted))
+        warm_st = svc.stats()
+        check(warm_st["jobs_done"] == 2 * len(jobs) and warm_st["jobs_failed"] == 0,
+              f"7b: second pass {warm_st['jobs_done']} done, {warm_st['jobs_failed']} failed")
+        check(sum(st["batch_sizes"]) == len(jobs) and st["jobs_failed"] == 0
+              and len(keys) <= st["batches"] and max(st["batch_sizes"]) <= 16,
+              f"7b: batches {st['batch_sizes']} for {len(keys)} keys")
+        # refused at submit: a mono external IR, an empty clip, a clip past the threshold
+        for bad, word in (
+            (RenderJob(clips[0, :n_full // 8], RATE, RenderParams(use_external_ir=True),
+                       external_ir=ir[:, :1]), "stereo"),
+            (RenderJob(np.zeros(0, np.float32), RATE, RenderParams()), "audio"),
+        ):
+            try:
+                svc.submit(bad)
+                check(False, f"7b: a bad job ({word}) was accepted")
+            except ValueError as e:
+                check(word in str(e).lower(), f"7b: refusal says {e}")
+        check(svc.stats()["inflight_input_bytes"] == 0, "7b: in-flight bytes left")
+    finally:
+        svc.stop()
+    short = RenderService(max_batch=4, streaming_threshold_s=seconds / 4, device=dev,
+                          start=False)
+    try:
+        short.submit(RenderJob(clips[0], RATE, RenderParams()))
+        check(False, "7b: a job past streaming_threshold_s was accepted")
+    except ValueError as e:
+        check("streaming" in str(e), f"7b: refusal says {e}")
+    # a cancelled queued job gives its bytes back
+    fut = short.submit(RenderJob(clips[0, :n_full // 8], RATE, RenderParams()))
+    check(short.stats()["inflight_input_bytes"] > 0 and fut.cancel(), "7b: cancel failed")
+    short.start()
+    short.stop()
+    check(short.stats()["inflight_input_bytes"] == 0 and short.stats()["batches"] == 0,
+          "7b: the cancelled job kept its bytes or was dispatched")
+    mixed = {"wall_s": wall, "jobs": len(jobs), "keys": len(keys), "batches": st["batches"],
+             "batch_sizes": st["batch_sizes"],
+             "audio_s_per_s": sum(j.audio.shape[0] for j in jobs) / RATE / wall,
+             "dispatch_s": st["dispatch_s"], "fetch_s": st["fetch_s"],
+             "fft_plans": st["fft_plans"], "fft_plans_max": st["fft_plans_max"],
+             "pinned_mb": st["pinned_mb"], "device_reserved_mb": st["device_reserved_mb"],
+             "uploaded_mb": st["dispatched_input_bytes_total"] / 1e6,
+             "fetched_mb": st["fetched_result_bytes_total"] / 1e6}
+    mixed["latency_p50_s"] = lat[len(lat) // 2]
+    mixed["latency_p95_s"] = lat[int(0.95 * (len(lat) - 1))]
+    mixed["warm"] = {
+        "wall_s": warm_wall,
+        "audio_s_per_s": sum(j.audio.shape[0] for j in jobs) / RATE / warm_wall,
+        "batch_sizes": warm_st["batch_sizes"][st["batches"]:],
+        "dispatch_s": warm_st["dispatch_s"] - st["dispatch_s"],
+        "fetch_s": warm_st["fetch_s"] - st["fetch_s"],
+        "latency_p50_s": warm_lat[len(warm_lat) // 2],
+        "latency_p95_s": warm_lat[int(0.95 * (len(warm_lat) - 1))],
+        "fft_plans": warm_st["fft_plans"],
+    }
+    if on_card:
+        mixed["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # what the card holds beside PyTorch's allocator: the cuFFT plans' tables
+        mixed["outside_allocator_mb"] = outside() / 1e6
+        mixed["outside_allocator_before_mb"] = outside_before / 1e6
+        mixed["pinned_before_mb"] = pinned_before / 1e6
+    # every job against its solo render on the same device
+    worst = [0.0, 0, 0.0]
+    for j, (job, r) in enumerate(zip(jobs, results)):
+        solo, solo_m = pipeline.render(job.audio, RATE, job.params, seed=job.seed,
+                                       external_ir=job.external_ir, return_metrics=True,
+                                       device=dev)
+        check(r.audio.shape == solo.shape, f"7b: job {j} {r.audio.shape} vs solo {solo.shape}")
+        err = float(np.abs(r.audio - solo).max())
+        clip16 = lambda x: wavio.encode_pcm16(np.clip(x, -0.9999, 0.9999)).astype(np.int32)  # noqa: E731
+        lsb = int(np.abs(clip16(r.audio) - clip16(solo)).max())
+        check(err <= SERVE_TOL and lsb <= 1,
+              f"7b: job {j} ({job.params}) vs its solo render: {err} max-abs, {lsb} LSB")
+        worst[:2] = [max(worst[0], err), max(worst[1], lsb)]
+        check((r.metrics is not None) == job.with_metrics, f"7b: job {j} metrics presence")
+        if job.with_metrics:
+            worst[2] = max(worst[2], check_metrics(r.metrics, solo_m, f"7b: job {j}")[0])
+    del results
+    mixed.update(solo_max_abs=worst[0], solo_lsb=worst[1], solo_lufs_d=worst[2])
+    timing["mixed"] = mixed
+    print(f"[7b mixed] {len(jobs)} jobs from 8 threads, {len(keys)} keys in {len(buckets)} "
+          f"length buckets -> batches {st['batch_sizes']}; each vs its solo render: max-abs "
+          f"{worst[0]:.3e} (tol {SERVE_TOL}), PCM16 {worst[1]} LSB, lufs d {worst[2]:.2e} LU; "
+          f"refused at submit: mono IR, empty clip, clip past streaming_threshold_s; the "
+          f"cancelled job gave its bytes back; wall {wall:.2f} s cold (new cuFFT plans), "
+          f"{warm_wall:.2f} s again", flush=True)
+    if on_card:
+        # the bank at 7b's padded Cathedral groups (12 jobs pad to 16, 8 stay 8)
+        cat = pipeline.build_internal_setup(RenderParams(**cathedral), RATE, RATE)
+        for b in (8, 16):
+            hold(f"serving cathedral B={b}", cat.ir_shape, cat.ir_scalars, range(200, 200 + b))
+        print(f"[7 bank] Cathedral 300, B in (8, 16) x {cat.ir_shape.length}: kernel vs plain "
+              f"max-abs early {out['bank_errs'][0]:.3e} late {out['bank_errs'][1]:.3e}",
+              flush=True)
+        # a bucket nobody has rendered yet against the same bucket again
+        svc = RenderService(max_batch=8, device=dev, start=False)
+        job = RenderJob(clips[1, :int(0.61 * n_full)], RATE,
+                        RenderParams(target_layout="7.1 (Surround)"), with_metrics=True)
+        for label in ("cold", "warm"):
+            t0 = time.perf_counter()
+            svc.warm(job, sizes=[8])
+            timing[f"bucket_{label}_s"] = time.perf_counter() - t0
+        svc.stop()
+        torch.cuda.empty_cache()
+
+    # ---------------- 7c: the HTTP job API ----------------
+    n_http = n_full - RATE // 3  # off the half-second grid: padded and trimmed
+    PresetStore(work).save("Smoke Hall", RenderParams(target_layout="Stereo", diffusion=0.7,
+                                                      **cathedral))
+    svc = RenderService(max_batch=4, max_wait_ms=50, pcm16_output=True, device=dev, start=False)
+    http = RenderHTTPService(svc, host="127.0.0.1", port=0, preset_dir=work).start()
+    try:
+        def upload(name, data, rate=RATE):
+            buf = io.BytesIO()
+            wavio.write(buf, data, rate)
+            code, body = http_call(http.port, "POST", "/v1/upload", buf.getvalue(),
+                                   {"X-Filename": name})
+            check(code == 200, f"7c: upload {name} answered {code}")
+            return json.loads(body)["path"]
+
+        def post_job(payload, expect=202):
+            code, body = http_call(http.port, "POST", "/v1/jobs", json.dumps(payload).encode())
+            check(code == expect, f"7c: POST /v1/jobs {payload} answered {code}: {body[:200]}")
+            return json.loads(body)
+
+        t0 = time.perf_counter()
+        paths = [upload(f"clip{i}.wav", clips[i, :n_http]) for i in range(4)]
+        ir_path = upload("ir.wav", ir)
+        upload_s = time.perf_counter() - t0
+        plain = dict(target_layout="Stereo", diffusion=0.4)
+        submitted_jobs = [
+            (post_job({"input": paths[0], "params": plain, "seed": 5, "metrics": True}),
+             paths[0], RenderParams(**plain), 5, False),
+            (post_job({"input": paths[1], "preset": "Smoke_Hall_v4.json",
+                       "params": {"x_pos": 0.9}, "seed": 6}),
+             paths[1], RenderParams(target_layout="Stereo", diffusion=0.7, x_pos=0.9,
+                                    **cathedral), 6, False),
+            (post_job({"input": paths[2], "params": {"use_external_ir": True,
+                                                     "target_layout": "Stereo"},
+                       "external_ir": ir_path, "seed": 7}),
+             paths[2], RenderParams(use_external_ir=True, target_layout="Stereo"), 7, True),
+        ]
+        doomed = post_job({"input": paths[3], "params": plain})["job_id"]
+        # the error contracts, while every job is still queued
+        first_id = submitted_jobs[0][0]["job_id"]
+        check(http_call(http.port, "GET", f"/v1/jobs/{first_id}/result")[0] == 409,
+              "7c: the result of a queued job did not answer 409")
+        code, body = http_call(http.port, "DELETE", f"/v1/jobs/{doomed}")
+        check(code == 200 and json.loads(body)["cancelled"] is True, f"7c: DELETE answered {code}")
+        check(http_call(http.port, "GET", f"/v1/jobs/{doomed}/result")[0] == 410,
+              "7c: the result of a cancelled job did not answer 410")
+        post_job({"input": "/etc/passwd", "params": {}}, expect=403)
+        post_job([1, 2], expect=400)
+        post_job({"input": paths[0], "seed": [3]}, expect=400)
+        for fmt in ("flac", "ogg"):
+            err = post_job({"input": paths[0], "format": fmt}, expect=400)
+            check("not supported by the PyTorch port" in err["error"], f"7c: {fmt}: {err}")
+        check(http_call(http.port, "GET", "/v1/jobs/" + "0" * 32)[0] == 404, "7c: unknown job")
+        check(http_call(http.port, "GET", "/v1/nothing")[0] == 404, "7c: unknown path")
+        with socket.create_connection(("127.0.0.1", http.port), timeout=30) as sock:
+            sock.sendall(b"POST /v1/upload HTTP/1.1\r\nHost: x\r\nContent-Length: "
+                         + str(513 * 1024 * 1024).encode() + b"\r\nConnection: close\r\n\r\n")
+            check(b"413" in sock.recv(64).split(b"\r\n", 1)[0], "7c: oversize body not 413")
+        presets = json.loads(http_call(http.port, "GET", "/v1/presets")[1])["presets"]
+        check("Smoke_Hall_v4.json" in presets, f"7c: presets {presets}")
+
+        t0 = time.perf_counter()
+        before = bank.launch_count
+        svc.start()
+        deadline = time.monotonic() + 300
+        for entry, *_ in submitted_jobs:
+            while True:
+                status = json.loads(http_call(http.port, "GET", f"/v1/jobs/{entry['job_id']}")[1])
+                if status["status"] != "queued":
+                    break
+                check(time.monotonic() < deadline, f"7c: job {entry['job_id']} still queued")
+                time.sleep(0.02)
+            check(status["status"] == "done", f"7c: job ended as {status}")
+        out["launches"] += bank.launch_count - before
+        jobs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for entry, path, p, seed, external in submitted_jobs:
+            code, wav = http_call(http.port, "GET", f"/v1/jobs/{entry['job_id']}/result")
+            check(code == 200 and wav[:4] == b"RIFF", f"7c: result answered {code}")
+            audio, rate = wavio.read(path)
+            bucket = sharding.bucket_length(audio.shape[0], rate)
+            direct = sharding.render_batch(
+                np.pad(audio, ((0, bucket - audio.shape[0]), (0, 0)))[None], rate, p,
+                seeds=[seed], clip_lengths=[audio.shape[0]], pcm16_output=True,
+                with_metrics=True, external_ir=wavio.read(ir_path)[0] if external else None,
+                device=dev)[0]
+            buf = io.BytesIO()
+            wavio.write(buf, direct[0, :audio.shape[0] + direct.shape[1] - bucket], rate)
+            check(wav == buf.getvalue(),
+                  f"7c: the served WAV of job {entry['job_id']} differs from the direct render's")
+        results_s = time.perf_counter() - t0
+        stats = json.loads(http_call(http.port, "GET", "/v1/stats")[1])
+        check(stats["jobs_done"] == 3 and stats["jobs_failed"] == 0 and stats["jobs_known"] == 4
+              and stats["inflight_input_bytes"] == 0 and "fft_plans" in stats,
+              f"7c: stats {stats}")
+    finally:
+        http.stop()
+    timing["http"] = {"upload_5_files_s": upload_s, "three_jobs_s": jobs_s,
+                      "three_results_s": results_s}
+    print(f"[7c http] 4 clips of {n_http / RATE:.2f} s and a stereo IR uploaded; params, preset "
+          f"and external-IR jobs done, their WAV bytes = wavio.write of the direct render's "
+          f"PCM16; a queued job cancelled (410), 409 while queued, 400 (non-object, seed, "
+          f"flac, ogg), 403, 404, 413 answered; stats back to zero in-flight bytes", flush=True)
+    out["timing"] = timing
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -905,6 +1516,20 @@ def main() -> int:
     bank_err = max(bank_err, cli["bank_max_abs_err"])
     print("[6 timing] " + json.dumps({"card": card, "nvidia_smi": smi, **cli}), flush=True)
 
+    # --- 7. the serving path: RenderService and its HTTP job API ---
+    del audio_t, packed, one, scal, scal1, cat_scal
+    torch.cuda.empty_cache()
+    bank.launch_count = 0
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    try:
+        serving = serving_phase(np, torch, bank, work, clips)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    main_launches += serving["launches"]
+    bank_err = max(bank_err, *serving["bank_errs"])
+    print("[7 timing] " + json.dumps({"card": card, "nvidia_smi": smi, **serving["timing"]}),
+          flush=True)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -915,7 +1540,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
-        "launches": main_launches,  # phases 4, 4c and 6
+        "launches": main_launches,  # phases 4, 4c, 6 and 7
         "max_abs_err": bank_err,
         "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],

@@ -2,7 +2,9 @@
 and injected draws) against their plain PyTorch versions on the card, the
 render paths through them, and the parity path at full size (BASELINE
 configs 1-5, 60 s at 48 kHz) against the float64 oracle; the binaural mix
-and ``resample_poly`` on the card against the CPU at 60 s.
+and ``resample_poly`` on the card against the CPU at 60 s; the serving
+batcher's pipelined groups (one CUDA stream each, page-locked staging)
+against direct ``render_batch`` calls, bit for bit.
 
 Marked ``cuda``; each test skips (with a reason) where no card is present,
 as on a CPU-only machine.  This file imports no JAX (the oracle is NumPy and
@@ -395,3 +397,88 @@ def test_resample_poly_on_card_matches_cpu(cuda):
     want = resample_poly(x, 48000, 44100)
     assert tuple(got.shape) == tuple(want.shape) == (60 * 48000, 2)
     assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def serving_clips(count, seconds, rate=48000):
+    rng = np.random.default_rng(0x5E47)
+    t = np.arange(int(seconds * rate)) / rate
+    return [(0.3 * np.sin(2 * np.pi * (170.0 + 11.0 * i) * t)
+             + 0.02 * rng.standard_normal(t.shape)).astype(np.float32) for i in range(count)]
+
+
+def test_depth2_burst_equals_direct_render_batch(cuda):
+    """16 jobs of 10 s at 48 kHz in groups of 8 at pipeline depth 2: each
+    group renders on a stream of its own while the other's result comes
+    down; every job equals its row of the direct call bit for bit, metrics
+    included, and each group launched the bank once."""
+    from audio_raytracing_studio_tpu_torch.serving import RenderJob, RenderService
+
+    rate = 48000
+    clips = serving_clips(16, 10.0)
+    params = [RenderParams(target_layout="Stereo", diffusion=0.2 + 0.04 * i, x_pos=i / 15.0)
+              for i in range(16)]
+    svc = RenderService(max_batch=8, max_wait_ms=2000, pcm16_output=True, pipeline_depth=2,
+                        device=cuda, start=False)
+    futs = [svc.submit(RenderJob(c, rate, p, seed=50 + i, with_metrics=True))
+            for i, (c, p) in enumerate(zip(clips, params))]
+    before = bank.launch_count
+    svc.start()
+    try:
+        results = [f.result(timeout=300) for f in futs]
+    finally:
+        svc.stop()
+    assert bank.launch_count == before + 2
+    st = svc.stats()
+    assert st["batch_sizes"] == [8, 8] and st["inflight_input_bytes"] == 0
+    assert st["fft_plans"] > 0 and st["pinned_mb"] > 0 and st["device_reserved_mb"] > 0
+    for g in range(2):
+        rows = slice(8 * g, 8 * g + 8)
+        direct, metrics = sharding.render_batch(
+            np.stack(clips[rows]), rate, params[rows], seeds=range(50 + 8 * g, 58 + 8 * g),
+            with_metrics=True, clip_lengths=[len(c) for c in clips[rows]], pcm16_output=True,
+            device=cuda)
+        for k, r in enumerate(results[rows]):
+            assert r.audio.dtype == np.int16
+            assert np.array_equal(r.audio, direct[k])
+            assert r.metrics == metrics[k]
+
+
+def test_pinned_staging_reuse_keeps_groups_apart(cuda):
+    """Page-locked staging buffers go back to the host allocator and come
+    out again while earlier copies may still be in flight.  Twelve distinct
+    5 s clips in six groups of two at depth 2, then two asynchronous
+    ``render_batch`` calls fetched in reverse order: a buffer reused before
+    its copy had finished would give another group's audio, not an error."""
+    from audio_raytracing_studio_tpu_torch.serving import RenderJob, RenderService
+
+    rate = 48000
+    clips = serving_clips(12, 5.0)
+    p = RenderParams(target_layout="Stereo")
+    svc = RenderService(max_batch=2, max_wait_ms=2000, pipeline_depth=2, max_queued=12,
+                        device=cuda)
+    try:
+        results = [f.result(timeout=300) for f in
+                   [svc.submit(RenderJob(c, rate, p, seed=i)) for i, c in enumerate(clips)]]
+    finally:
+        svc.stop()
+    assert svc.stats()["batch_sizes"] == [2] * 6
+    for g in range(6):
+        direct = sharding.render_batch(np.stack(clips[2 * g: 2 * g + 2]), rate, p,
+                                       seeds=[2 * g, 2 * g + 1], clip_lengths=[len(clips[0])] * 2,
+                                       device=cuda)
+        for k in range(2):
+            assert np.array_equal(results[2 * g + k].audio, direct[k]), (g, k)
+
+    staged = []
+    for g in range(2):
+        buf = sharding.staging_clips(2, len(clips[0]), 1, cuda)
+        for k in range(2):
+            buf[k] = clips[2 * g + k][:, None]
+        staged.append(buf)
+    fetches = [sharding.render_batch(buf, rate, p, seeds=[2 * g, 2 * g + 1], async_results=True,
+                                     device=cuda) for g, buf in enumerate(staged)]
+    for g in (1, 0):
+        got = fetches[g]()
+        want = sharding.render_batch(np.stack(clips[2 * g: 2 * g + 2]), rate, p,
+                                     seeds=[2 * g, 2 * g + 1], device=cuda)
+        assert np.array_equal(got, want), g

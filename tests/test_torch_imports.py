@@ -28,7 +28,8 @@ def test_every_port_module_is_listed():
                      "models.pipeline", "models.convert", "parallel.sharding",
                      "utils.kernels", "config", "params", "metering.kweighting",
                      "utils.runtime", "utils.wavio", "utils.presets", "analysis.metrics",
-                     "ops.binaural", "cli.render", "cli.render_dir", "cli.analyzer"):
+                     "ops.binaural", "cli.render", "cli.render_dir", "cli.analyzer",
+                     "serving.batcher", "serving.service", "utils.uploads", "utils.httpbase"):
         assert f"{port.__name__}.{expected}" in names
 
 
