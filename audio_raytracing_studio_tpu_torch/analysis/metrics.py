@@ -3,8 +3,8 @@
 The reference's metrics string (raytracer_studio.py:1070-1075):
 ``"LUFS: {x:.2f} | Peak: {y:.1f} dBFS | RMS: {z:.1f} dBFS"`` with "N/A" for
 missing LUFS and "-inf" for silent peak/RMS; and the metrics of a host
-(samples, channels) array through the port's meter on ``device``.  The JAX
-package's float64 oracle meter (``backend="oracle"``) is not part of the port.
+(samples, channels) array through the port's meter on ``device``, or through
+the float64 NumPy meter (``backend="oracle"``, ``oracle.loudness``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..metering import loudness
-from ..utils.runtime import ensure_device
+from ..utils.runtime import resolve_device
 
 
 def metrics_string(metrics: dict) -> str:
@@ -40,14 +40,26 @@ def metrics_string(metrics: dict) -> str:
     return f"LUFS: {lufs_str} | Peak: {peak_str} dBFS | RMS: {rms_str} dBFS"
 
 
-def calculate_audio_metrics(data: np.ndarray, rate: int, device="cuda") -> dict:
-    """LUFS / sample-peak / RMS of (samples, channels) audio through the
-    port's meter (``metering.loudness.audio_metrics``) on ``device``.
+def calculate_audio_metrics(data: np.ndarray, rate: int, device=None,
+                            backend: str = "torch") -> dict:
+    """LUFS / sample-peak / RMS of (samples, channels) audio.
+
+    ``backend="torch"`` runs the port's meter
+    (``metering.loudness.audio_metrics``) on ``device`` (``None``: the
+    process-wide ``utils.runtime.default_device()``); ``backend="oracle"``
+    runs the float64 NumPy meter (``oracle.loudness``) on the host and needs
+    no device.
 
     >2-D, empty or rate ≤ 0 input gives the None-metrics dict, as the
     reference's error path does (raytracer_studio.py:674-711) — it never raises.
     """
-    dev = ensure_device(device)
+    if backend == "oracle":
+        from ..oracle.loudness import calculate_audio_metrics as oracle_metrics
+
+        return oracle_metrics(data, rate)
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r} (expected 'torch' or 'oracle')")
+    dev = resolve_device(device)
     x = np.asarray(data, dtype=np.float32)
     if x.ndim == 1:
         x = x[:, np.newaxis]

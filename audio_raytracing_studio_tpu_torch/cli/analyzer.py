@@ -4,8 +4,9 @@ File analysis (rate / channels / duration / LUFS, optionally the 4×
 oversampled true peak), normalization to a target LUFS by a static gain,
 and conversion to WAV with an optional rate change (``ops.resample.
 resample_poly``).  Measurement and resampling run on the CUDA device unless
-``--device cpu`` is given.  The port reads WAV and AIFF and writes WAV; the
-JAX package's float64 oracle meter (``--backend oracle``) is not part of it.
+``--device cpu`` is given; ``--backend oracle`` meters with the float64
+NumPy meter (``oracle.loudness``) on the host instead.  The port reads WAV
+and AIFF and writes WAV.
 
 Usage:
   python -m audio_raytracing_studio_tpu_torch.cli.analyzer analyze in.wav --true-peak
@@ -28,7 +29,8 @@ from ..utils import wavio
 from ..utils.runtime import ensure_device
 
 
-def analyze(path: str, true_peak: bool = False, device="cuda") -> dict:
+def analyze(path: str, true_peak: bool = False, device="cuda",
+            backend: str = "torch") -> dict:
     """Rate / channels / duration / LUFS (the reference's analyser.py:50-70).
 
     ``true_peak=True`` also reports the 4× oversampled inter-sample true peak
@@ -37,7 +39,7 @@ def analyze(path: str, true_peak: bool = False, device="cuda") -> dict:
     (raytracer_studio.py:695-697), kept as it is.
     """
     data, rate = wavio.read(path)
-    metrics = calculate_audio_metrics(data, rate, device=device)
+    metrics = calculate_audio_metrics(data, rate, device=device, backend=backend)
     lufs = metrics["lufs"]
     peak = metrics["true_peak_dbfs"]
     result = {
@@ -59,7 +61,8 @@ def analyze(path: str, true_peak: bool = False, device="cuda") -> dict:
 
 
 def normalize_to_lufs(
-    input_path: str, output_path: str, target_lufs: float = -16.0, device="cuda"
+    input_path: str, output_path: str, target_lufs: float = -16.0, device="cuda",
+    backend: str = "torch",
 ) -> dict:
     """Static-gain normalization to the target integrated loudness, written
     as PCM16 by ``wavio.write_audio``.
@@ -68,7 +71,7 @@ def normalize_to_lufs(
     gain-equivariant) and keeps the dynamics untouched.
     """
     data, rate = wavio.read(input_path)
-    lufs = calculate_audio_metrics(data, rate, device=device)["lufs"]
+    lufs = calculate_audio_metrics(data, rate, device=device, backend=backend)["lufs"]
     if lufs is None or not np.isfinite(lufs):
         raise ValueError("LUFS nicht messbar (Stille oder zu kurz)")
     gain_db = target_lufs - lufs
@@ -80,7 +83,8 @@ def normalize_to_lufs(
     # a constant gain is exact for integrated loudness, so metering again
     # only adds information when the clip stage engaged
     if clipped:
-        output_lufs = calculate_audio_metrics(out, rate, device=device)["lufs"]
+        output_lufs = calculate_audio_metrics(
+            out, rate, device=device, backend=backend)["lufs"]
     else:
         output_lufs = target_lufs
     return {
@@ -127,12 +131,14 @@ def main(argv=None) -> int:
         help="also report the 4x oversampled inter-sample true peak (dBTP)",
     )
     a.add_argument("--device", default="cuda", help=device_help)
+    a.add_argument("--backend", default="torch", choices=["torch", "oracle"])
 
     n = sub.add_parser("normalize", help="normalize to target LUFS")
     n.add_argument("input")
     n.add_argument("output")
     n.add_argument("--target", type=float, default=-16.0)
     n.add_argument("--device", default="cuda", help=device_help)
+    n.add_argument("--backend", default="torch", choices=["torch", "oracle"])
 
     c = sub.add_parser("convert", help="convert WAV/AIFF to WAV, optionally rate-converting")
     c.add_argument("input")
@@ -146,15 +152,18 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     try:
-        ensure_device(args.device)
+        if getattr(args, "backend", "torch") != "oracle":
+            ensure_device(args.device)  # the oracle meter runs on the host
         if args.cmd == "analyze":
             print(json.dumps(
-                analyze(args.input, true_peak=args.true_peak, device=args.device),
+                analyze(args.input, true_peak=args.true_peak, device=args.device,
+                        backend=args.backend),
                 ensure_ascii=False, indent=2,
             ))
         elif args.cmd == "normalize":
             print(json.dumps(normalize_to_lufs(args.input, args.output, args.target,
-                                               device=args.device), indent=2))
+                                               device=args.device,
+                                               backend=args.backend), indent=2))
         elif args.cmd == "convert":
             print(convert(args.input, args.output, samplerate=args.samplerate,
                           device=args.device))

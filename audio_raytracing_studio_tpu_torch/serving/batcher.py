@@ -199,9 +199,15 @@ class RenderService:
                   CUDA stream of its own.  2 (the default) overlaps group
                   *i*'s copy down and trim with group *i+1*'s stacking,
                   upload and render; 1 is the fully serial worker.  Each
-                  in-flight group holds its device buffers and pinned
-                  staging until its copy down completes, so depth bounds
-                  both.
+                  in-flight group holds its device buffers and page-locked
+                  staging until its copy down completes.  The worker
+                  enqueues a group's render *before* it waits for a free
+                  slot in the completer's queue (``depth − 1`` slots), so
+                  up to ``depth + 1`` groups hold such memory at once: one
+                  with the completer, ``depth − 1`` queued, one dispatched
+                  and waiting for its slot (at depth 1 the worker completes
+                  its own group: one).  Size the card's and the host's
+                  page-locked memory for ``depth + 1`` groups.
     device:       where the service renders; "cuda" (the default) needs a
                   card and raises here without one, "cpu" is the plain path.
     start:        spawn the worker immediately (tests pass False to stage
@@ -390,7 +396,13 @@ class RenderService:
     def submit(self, job: RenderJob) -> "Future[RenderResult]":
         """Validate, key, and enqueue a job.  Invalid jobs raise HERE
         (fail-fast ValueError), never poison the worker; an overloaded or
-        stopped service raises RuntimeError (HTTP: 503)."""
+        stopped service raises RuntimeError (HTTP: 503).
+
+        A float32 ``job.audio`` is kept, not copied: the queued job holds a
+        view of the caller's array until its group is stacked.  The caller
+        must not write to that array until the future resolves — a write
+        before then changes what is rendered.  (Arrays of another type are
+        converted, which copies them.)"""
         if self._stopped:
             raise RuntimeError("render service stopped")
         if self._q.qsize() >= self.max_queued:

@@ -6,11 +6,23 @@ CPU when the accelerator does not answer.  The port never falls back: a
 caller that asks for CUDA on a machine without a card gets an error, and
 the CPU runs only when the caller names it (``--device cpu`` on the CLIs,
 ``device="cpu"`` from Python).
+
+The application surfaces whose reference signatures carry no ``device``
+argument (``app.api``, the studio's handlers, ``compat`` when ``device`` is
+left ``None``) run on one process-wide default: ``default_device()``, which
+is ``"cuda"`` unless the environment variable ``ARS_TORCH_DEVICE`` named
+another device when it was first read, or ``set_default_device`` was called.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+
 import torch
+
+_default_lock = threading.Lock()
+_default_device = None  # resolved at first use, under the lock
 
 
 def ensure_device(device="cuda") -> torch.device:
@@ -24,3 +36,35 @@ def ensure_device(device="cuda") -> torch.device:
             "command line, or device='cpu' from Python, for the plain PyTorch path"
         )
     return dev
+
+
+def default_device() -> str:
+    """The process-wide device of the surfaces without a ``device`` argument.
+
+    ``ARS_TORCH_DEVICE`` is read once, at the first call; later changes of the
+    environment are not seen (use ``set_default_device``).  The name is not
+    validated here: callers pass it through ``ensure_device``, which raises
+    for CUDA without a card.
+    """
+    global _default_device
+    with _default_lock:
+        if _default_device is None:
+            _default_device = os.environ.get("ARS_TORCH_DEVICE", "").strip() or "cuda"
+        return _default_device
+
+
+def set_default_device(device) -> str:
+    """Set the process-wide default (``None`` forgets it, so that the next
+    ``default_device()`` reads ``ARS_TORCH_DEVICE`` again); returns the
+    previous setting, which may be ``None``."""
+    global _default_device
+    with _default_lock:
+        previous = _default_device
+        _default_device = None if device is None else str(device)
+        return previous
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` — or the process-wide default when it is ``None`` — through
+    ``ensure_device``."""
+    return ensure_device(default_device() if device is None else device)

@@ -18,7 +18,10 @@ Drives the port's paths at full size and checks them:
   polyphase resampler;
 - the serving path — ``serving.RenderService`` (micro-batches over
   ``render_batch(async_results=True)``, one CUDA stream per in-flight
-  group) and its HTTP job API ``serving.service.RenderHTTPService``.
+  group) and its HTTP job API ``serving.service.RenderHTTPService``;
+- the product surfaces — ``app.api.process_audio_main_v41`` (the studio's one
+  button), the 4-tab studio over its headless HTTP server, the visualizer's
+  device STFT, the A/B profiler, the analyzer UI and the ``compat`` façade.
 
 Phases, one line each:
 
@@ -73,7 +76,9 @@ Phases, one line each:
    metrics equal, bit for bit, its row of one direct ``render_batch`` on
    the card, depth 2 equals depth 1, and a float32 burst is held to the
    port's CPU path on jobs 0 and 47 (≤ 1e-4); then four bursts queued at
-   once, twice (the sustained rate).  7b: 64 jobs from 8 threads —
+   once, twice (the sustained rate); then ``warm()`` called from this
+   thread while two bursts are queued or in flight, three times, every job
+   still equal to its direct row.  7b: 64 jobs from 8 threads —
    20-60 s in four half-second buckets, Room and Cathedral 300, Stereo and
    5.1, metrics on and off, some with shelf EQ at a padded length, 8
    sharing one external IR — into ``max_batch=16, max_wait_ms=100``, cold
@@ -96,7 +101,39 @@ Phases, one line each:
    ``fetch()``, the device's busy share of a depth-2 burst
    (torch.profiler), 7b's latencies, plan-cache size and memory, a cold
    bucket against a warm one (``warm()``), the HTTP walls.  Every wait on a
-   future has a timeout.
+   future has a timeout;
+8. the product surfaces on a 60 s, 48 kHz stereo WAV, the process-wide
+   device set to the card.  8a: ``process_audio_main_v41(path, None, None,
+   *controls, seed=3)`` with the 16 controls in ``config.PRESET_KEYS`` order
+   for Room / Stereo, for Cathedral 300 / 5.1 with shelf EQ (bass 1.6, treble
+   0.7) and for an external stereo IR: each written WAV equal bit for bit to
+   ``wavio``'s PCM16 of the port's ``pipeline.render`` on the card with the
+   same params and seed, the metrics string to ``metrics_string`` of that
+   render's metrics, one counted bank call per internal render, the bank held
+   to its plain version at both shapes (B=1), the first case again with the
+   CPU as the default device (PCM16 within 1 LSB, ``render`` ≤ 1e-4), and two
+   error strings of the contract.  8b: ``compute_spectrogram(use_device=
+   True)`` on channel 0 of the 5.1 render (3,155,898 samples, nperseg 4096,
+   1,539 frames) against ``device="cpu"`` and ``scipy.signal.spectrogram``:
+   ≤ 1e-5 of the matrix's maximum, the gap in dB above the plot's 1e-10
+   floor, the plot's color limits within 0.01 dB.  8c: ``compat`` chained as
+   the reference's monolith chains it (IR, split convolve with EQ and air,
+   pan, map to 5.1, 7.1 and 5.1.2, external-IR convolve, LP filter,
+   metrics), each call against ``device="cpu"`` (≤ 1e-4), the chain's end
+   against 8a's render.  8d: ``StudioHTTPServer(build_demo(store))`` on
+   127.0.0.1: upload, the process button through ``POST /event`` while
+   ``/state`` is polled, ``GET /file`` equal to 8a's bytes, 403 outside the
+   allowlist, the profiler report on (input, output), the analyzer UI's
+   ``do_analyze`` and ``do_normalize`` on the 6-channel file; and only where
+   ``importlib.util.find_spec`` finds matplotlib / PIL, the visualizer PNGs
+   and the startup marker (the line says which ran; every step that touches
+   the card runs regardless).  ``[8 timing]``: each call's wall and its split
+   (read, ``render``, clip + encode + write, player copy), the STFT's times,
+   the HTTP walls.
+
+Development options (a run with either prints no result line):
+``--only 8`` runs phases 1, 2 and 8; ``--rehearse-cpu SECONDS`` walks phase
+8's control flow on the CPU at a short clip length.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -131,7 +168,8 @@ LU_TOL = 0.01  # card vs CPU meter, masked vs trimmed (PARITY.md item 2's bound)
 DB_TOL = 0.01  # sample peak and RMS, dB
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 PEAK_F32_S = 67e12  # float32 outside the tensor cores, same source
-CLI_SECONDS = 60  # phase 6: the one clip and the 44.1 kHz clip to convert
+CLI_SECONDS = 60  # phases 6 and 8: the one clip (and phase 6's 44.1 kHz clip to convert)
+STFT_TOL = 1e-5  # device STFT power vs the CPU's and scipy's, as a share of the matrix's maximum
 STEM_SECONDS = (30, 45, 60)  # phase 6: the three length groups of the stems
 
 
@@ -917,6 +955,43 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
     print(f"[7a burst] float32 exact burst: jobs 0 and {batch - 1} vs the port's CPU path "
           f"max-abs {cpu_err:.3e} (tol {RENDER_TOL})", flush=True)
 
+    # warm() while a burst is in flight: it renders on the worker's streams
+    # from this thread, so the live bursts must still equal the direct rows
+    direct_q, direct_m = sharding.render_batch(
+        padded, RATE, params, seeds=seeds, fast_filters=True, with_metrics=True,
+        clip_lengths=lengths, pcm16_output=True, device=dev)
+    svc = RenderService(max_batch=batch, max_wait_ms=2000, pcm16_output=True, fast_filters=True,
+                        pipeline_depth=2, max_queued=2 * batch, device=dev)
+    overlapped = 0
+    warm_rounds = 3
+    try:
+        for _ in range(2):  # one burst per stream first
+            served(lambda: wait_all([svc.submit(j) for j in burst_jobs()]))
+        t0 = time.perf_counter()
+        for _ in range(warm_rounds):
+            futs = [svc.submit(j) for _ in range(2) for j in burst_jobs()]
+            warmed = served(lambda: svc.warm(burst_jobs()[0], sizes=[batch]))
+            overlapped += sum(not f.done() for f in futs) > 0  # jobs still out when warm ended
+            results = served(lambda: wait_all(futs))
+            for k, r in enumerate(results):
+                i = k % batch
+                check(np.array_equal(r.audio, direct_q[i, :lengths[i] + ir_tail])
+                      and r.metrics == direct_m[i],
+                      f"7a warm: job {i} of a burst that overlapped warm() differs from "
+                      "the direct render_batch row")
+            del futs, results
+        timing["warm_overlap"] = {"rounds": warm_rounds, "rounds_with_jobs_still_out": overlapped,
+                                  "buckets_warmed": warmed, "streams": len(svc._streams),
+                                  "wall_s": time.perf_counter() - t0}
+        check(svc.stats()["jobs_failed"] == 0, "7a warm: a job failed")
+    finally:
+        svc.stop()
+    del direct_q
+    print(f"[7a warm] warm(sizes=[{batch}]) on both streams from the calling thread while two "
+          f"bursts of {batch} were queued or in flight, {warm_rounds} times ({overlapped} with "
+          f"jobs still out when warm() returned): every job = its direct render_batch row "
+          f"bit for bit", flush=True)
+
     if on_card:
         # the bank at every batch size the service dispatches at, 7a's scalars
         svc = RenderService(max_batch=batch, device=dev, start=False)
@@ -1262,8 +1337,452 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
     return out
 
 
-def main() -> int:
+def product_phase(np, torch, bank, work: str, seconds: float = CLI_SECONDS,
+                  device: str = "cuda") -> dict:
+    """Phase 8: the product surfaces.  8a ``process_audio_main_v41`` on a
+    stereo WAV (Room / Stereo; Cathedral 300 / 5.1 with shelf EQ; an external
+    stereo IR), each written WAV equal bit for bit to ``wavio``'s PCM16 of
+    the port's ``pipeline.render`` with the same params and seed; 8b the
+    visualizer's device STFT on channel 0 of the 5.1 render against the CPU
+    and scipy; 8c the ``compat`` façade chained as the reference's monolith
+    chains it, each call against ``device="cpu"``; 8d the studio over its
+    HTTP server, the profiler, the analyzer UI, and — where matplotlib and
+    PIL are installed — the visualizer PNG and the marker.  Returns the
+    timings, the bank launches of 8a and 8d and the bank's worst error."""
+    import importlib.util
+    import threading
+    import unittest.mock
+
+    from audio_raytracing_studio_tpu_torch import RenderParams, compat, config
+    from audio_raytracing_studio_tpu_torch.analysis import visualize
+    from audio_raytracing_studio_tpu_torch.analysis.metrics import (
+        calculate_audio_metrics, metrics_string)
+    from audio_raytracing_studio_tpu_torch.app import analyzer_ui, api, studio
+    from audio_raytracing_studio_tpu_torch.app.server import StudioHTTPServer
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.utils import runtime, wavio
+    from audio_raytracing_studio_tpu_torch.utils.presets import PresetStore
+
+    dev = runtime.ensure_device(device)
+    on_card = dev.type == "cuda"
+    have = {"matplotlib": importlib.util.find_spec("matplotlib") is not None,
+            "pil": importlib.util.find_spec("PIL") is not None}
+    out = {"launches": 0, "bank_errs": [0.0, 0.0], **have}
+    timing = {}
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+    made = []  # temp files the handlers leave behind (NamedTemporaryFile(delete=False))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def controls(p):
+        return [getattr(p, k) for k in config.PRESET_KEYS]
+
+    def pcm(file):
+        data, rate = wavio.read(file)
+        return np.rint(data * 32768.0).astype(np.int32), rate
+
+    rng = np.random.default_rng(0x8A)
+    n = int(seconds * RATE)
+    t = np.arange(n, dtype=np.float32) / RATE
+    song = np.stack([0.35 * np.sin(2 * np.pi * 196 * t) * np.exp(-(t % 1.5)),
+                     0.3 * np.sin(2 * np.pi * 294 * t + 0.5) * np.exp(-((t + 0.7) % 1.5))],
+                    axis=1) + rng.standard_normal((n, 2), dtype=np.float32) * 0.01
+    wavio.write(path("song.wav"), song, RATE)
+    audio, _ = wavio.read(path("song.wav"))
+    n_ir = int(0.4 * RATE)
+    ir = (rng.standard_normal((n_ir, 2)) * np.exp(-np.arange(n_ir) / (0.05 * RATE))[:, None]
+          * 0.3).astype(np.float32)
+    wavio.write(path("ir.wav"), ir, RATE, subtype="FLOAT")
+    ir_read, _ = wavio.read(path("ir.wav"))
+    del song, t
+
+    previous = runtime.set_default_device(str(dev))
+    old_cwd = os.getcwd()
+    os.chdir(work)  # the studio keeps its presets and its map beside the working directory
+    try:
+        # ---------------- 8a: the app's main path ----------------
+        cases = [
+            ("room_stereo", RenderParams(hall_type="Room", target_layout="Stereo"), None),
+            ("cathedral_51_eq", RenderParams(hall_type="Cathedral", room_size=300.0,
+                                             target_layout="5.1 (Standard)", bass_gain=1.6,
+                                             treble_gain=0.7), None),
+            ("external_ir", RenderParams(use_external_ir=True, target_layout="Stereo"),
+             path("ir.wav")),
+        ]
+        refs = {}
+        for label, p, ir_file in cases:
+            internal = ir_file is None
+            walls = []
+            for attempt in range(2):  # the first call of a shape creates its cuFFT plans
+                before = bank.launch_count
+                sync()
+                t0 = time.perf_counter()
+                player, download, text = api.process_audio_main_v41(
+                    path("song.wav"), None, ir_file, *controls(p), seed=3)
+                walls.append(time.perf_counter() - t0)
+                check(player is not None and player == download and os.path.isfile(player),
+                      f"8a {label}: no result file: {text}")
+                made.append(player)
+                launched = bank.launch_count - before
+                expected = 1 if internal and on_card else 0  # the plain version is not counted
+                check(launched == expected,
+                      f"8a {label}: {launched} bank calls, expected {expected}")
+                out["launches"] += launched
+            # the same render directly, and the call's wall split
+            split = {}
+            t0 = time.perf_counter()
+            wavio.read(path("song.wav"))
+            split["read_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref, ref_m = pipeline.render(
+                audio, RATE, p, seed=3, external_ir=None if internal else ir_read,
+                external_ir_rate=None if internal else RATE, return_metrics=True, device=dev)
+            split["render_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            wavio.write(path("direct.wav"), np.clip(ref, -config.OUTPUT_CLIP, config.OUTPUT_CLIP),
+                        RATE, subtype="PCM_16")
+            split["clip_encode_write_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            shutil.copy2(path("direct.wav"), path("copy.wav"))
+            split["player_copy_s"] = time.perf_counter() - t0
+            with open(player, "rb") as a, open(path("direct.wav"), "rb") as b:
+                served_bytes, direct_bytes = a.read(), b.read()
+            check(served_bytes == direct_bytes,
+                  f"8a {label}: the written WAV differs from wavio PCM16 of render()")
+            check(text == metrics_string(ref_m),
+                  f"8a {label}: metrics string {text!r} vs {metrics_string(ref_m)!r}")
+            check(ref.shape[1] == config.CHANNEL_LAYOUTS[p.target_layout]["channels"]
+                  and bool(np.isfinite(ref).all()) and float(np.abs(ref).max()) <= 1.0,
+                  f"8a {label}: render {ref.shape}, peak {np.abs(ref).max()}")
+            refs[label] = (ref, ref_m, served_bytes)
+            timing[label] = {"first_call_s": walls[0], "call_s": walls[1], **split,
+                             "wav_mb": len(served_bytes) / 1e6}
+            line = (f"[8a app] {label}: process_audio_main_v41 -> {ref.shape} PCM16 WAV = wavio "
+                    f"PCM16 of render() bit for bit, {text!r} = metrics_string(render's); wall "
+                    f"{walls[1]:.3f} s (first {walls[0]:.3f} s; read {split['read_s']:.3f}, "
+                    f"render() {split['render_s']:.3f}, clip+encode+write "
+                    f"{split['clip_encode_write_s']:.3f}, player copy "
+                    f"{split['player_copy_s']:.3f})")
+            if internal:
+                setup = pipeline.build_internal_setup(p, RATE, n)
+                if on_card:
+                    errs = hold_bank(np, torch, bank, f"8a {label}", setup.ir_shape,
+                                     setup.ir_scalars, [3])
+                    out["bank_errs"] = [max(a, b) for a, b in zip(out["bank_errs"], errs)]
+                    line += (f"; bank B=1 length {setup.ir_shape.length} kernel vs plain "
+                             f"{max(errs):.3e}")
+            print(line, flush=True)
+
+        # (i) again with the CPU as the process-wide device: the plain path
+        runtime.set_default_device("cpu")
+        before = bank.launch_count
+        t0 = time.perf_counter()
+        cpu_player, _, cpu_text = api.process_audio_main_v41(
+            path("song.wav"), None, None, *controls(cases[0][1]), seed=3)
+        timing["room_stereo"]["cpu_call_s"] = time.perf_counter() - t0
+        runtime.set_default_device(str(dev))
+        check(cpu_player is not None, f"8a CPU: {cpu_text}")
+        made.append(cpu_player)
+        check(bank.launch_count == before, "8a: the CPU call launched the CUDA bank")
+        buf = io.BytesIO(refs["room_stereo"][2])
+        a, b = pcm(buf)[0], pcm(cpu_player)[0]
+        lsb = int(np.abs(a - b).max())
+        cpu_ref = pipeline.render(audio, RATE, cases[0][1], seed=3, device="cpu")
+        cpu_err = float(np.abs(refs["room_stereo"][0] - cpu_ref).max())
+        check(a.shape == b.shape and lsb <= 1 and cpu_err <= RENDER_TOL,
+              f"8a card vs CPU: {lsb} LSB, render {cpu_err} > {RENDER_TOL}")
+        del cpu_ref, a, b
+        timing["card_vs_cpu"] = {"pcm16_lsb": lsb, "render_max_abs": cpu_err}
+        print(f"[8a app] room_stereo with the CPU as default device: PCM16 within {lsb} LSB, "
+              f"render() card vs CPU {cpu_err:.3e} (tol {RENDER_TOL}); {cpu_text!r}", flush=True)
+        # the error contract holds on the card too
+        check(api.process_audio_main_v41(None, None, None, *controls(cases[0][1]))
+              == (None, None, "Keine gültige Quelle"), "8a: no-source answer")
+        wavio.write(path("mono_ir.wav"), ir[:, 0], RATE)
+        check(api.process_audio_main_v41(path("song.wav"), None, path("mono_ir.wav"),
+                                         *controls(cases[2][1]))
+              == (None, None, "Externe IR muss Stereo sein."), "8a: mono IR answer")
+
+        # ---------------- 8b: the device STFT ----------------
+        six, six_m, _ = refs["cathedral_51_eq"]
+        ch0 = np.ascontiguousarray(six[:, 0])
+        nperseg = min(visualize.spectrogram_nperseg(ch0.shape[0] / RATE), ch0.shape[0])
+        sync()
+        t0 = time.perf_counter()
+        f_d, t_d, s_d = visualize.compute_spectrogram(ch0, RATE, nperseg, use_device=True)
+        stft_call_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        visualize.compute_spectrogram(ch0, RATE, nperseg, use_device=True)
+        stft_call_again_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, s_c = visualize.compute_spectrogram(ch0, RATE, nperseg, use_device=True,
+                                                  device="cpu")
+        stft_cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f_s, t_s, s_s = visualize.compute_spectrogram(ch0, RATE, nperseg)
+        stft_scipy_s = time.perf_counter() - t0
+        check(s_d.shape == s_c.shape == s_s.shape == (nperseg // 2 + 1,
+                                                      (ch0.shape[0] - nperseg) // (nperseg // 2) + 1),
+              f"8b: STFT shapes {s_d.shape} {s_c.shape} {s_s.shape}")
+        check(np.allclose(f_d, f_s) and np.allclose(t_d, t_s), "8b: STFT axes differ from scipy's")
+        top = float(s_s.max())
+        db = lambda m: 10 * np.log10(np.maximum(m, 1e-10))  # noqa: E731 — the plot's floor
+        limits = lambda m: (max(np.median(db(m)) - 40, db(m).max() - 80), db(m).max())  # noqa: E731
+        stft = {"samples": int(ch0.shape[0]), "nperseg": int(nperseg), "frames": int(s_d.shape[1]),
+                "vs_cpu_rel": float(np.abs(s_d - s_c).max()) / top,
+                "vs_scipy_rel": float(np.abs(s_d - s_s).max()) / top,
+                "vs_cpu_db": float(np.abs(db(s_d) - db(s_c)).max()),
+                "vs_scipy_db": float(np.abs(db(s_d) - db(s_s)).max()),
+                "color_limits_moved_db": float(max(abs(a - b) for a, b in
+                                                   zip(limits(s_d), limits(s_s)))),
+                "call_with_upload_s": stft_call_again_s, "first_call_s": stft_call_s,
+                "cpu_call_s": stft_cpu_s, "scipy_call_s": stft_scipy_s}
+        check(stft["vs_cpu_rel"] <= STFT_TOL and stft["vs_scipy_rel"] <= STFT_TOL,
+              f"8b: STFT power gap {stft} > {STFT_TOL} of the maximum")
+        check(stft["color_limits_moved_db"] <= 0.01, f"8b: the plot's color limits moved {stft}")
+        if on_card:
+            x = torch.from_numpy(ch0).to(dev)
+            win = torch.hann_window(nperseg, periodic=True, dtype=torch.float64).float().to(dev)
+            stft["device_ms"] = cuda_ms(torch, lambda: visualize.stft_power(x, win, 1.0), 10)
+            del x, win
+        timing["stft"] = stft
+        print(f"[8b stft] channel 0 of the 5.1 render: {stft['samples']} samples, nperseg "
+              f"{nperseg}, {stft['frames']} frames; device vs CPU {stft['vs_cpu_rel']:.2e}, vs "
+              f"scipy {stft['vs_scipy_rel']:.2e} of the maximum (tol {STFT_TOL}); above the "
+              f"1e-10 floor {stft['vs_cpu_db']:.3f} / {stft['vs_scipy_db']:.3f} dB at most, "
+              f"color limits moved {stft['color_limits_moved_db']:.2e} dB; "
+              f"{stft.get('device_ms', float('nan')):.3f} ms on the device, "
+              f"{1e3 * stft_call_again_s:.1f} ms with upload and copy back (scipy "
+              f"{1e3 * stft_scipy_s:.1f} ms)", flush=True)
+        del s_d, s_c, s_s
+
+        # ---------------- 8c: compat on the card ----------------
+        p = cases[1][1]
+        gaps = {}
+
+        def both(label, fn, pick=lambda r: r):
+            """``fn(device=...)`` on the card and on the CPU → the card's
+            result; ``pick`` names the array (or tuple of arrays) to compare,
+            whose gap is recorded and held to RENDER_TOL."""
+            arrays = lambda r: pick(r) if isinstance(pick(r), tuple) else (pick(r),)  # noqa: E731
+            sync()
+            t0 = time.perf_counter()
+            got = fn(device=str(dev))
+            wall = time.perf_counter() - t0
+            want = fn(device="cpu")
+            err = max(float(np.abs(a - b).max()) for a, b in zip(arrays(got), arrays(want)))
+            check(err <= RENDER_TOL, f"8c {label}: card vs CPU {err} > {RENDER_TOL}")
+            gaps[label] = {"max_abs": err, "card_call_s": wall}
+            return got
+
+        dur, refl, maxd, split_s = compat.adjust_parameters_for_3d(p.hall_type, p.room_size, p.z_pos)
+        direc = compat.compute_final_directionality_3d(p.x_pos, p.y_pos, p.z_pos, p.hall_type,
+                                                       p.diffusion, p.dry_wet)
+        early, late = both("generate_impulse_response_split_3d",
+                           lambda device: compat.generate_impulse_response_split_3d(
+                               RATE, dur, refl, maxd, p.material, direc, split_s, p.diffusion,
+                               seed=3, device=device))
+        el, ll = compat.adapt_early_late_levels(p.dry_wet, p.early_level, p.late_level)
+        mixed = both("convolve_audio_split_3d", lambda device: compat.convolve_audio_split_3d(
+            audio, early, late, el, ll, p.dry_wet, p.bass_gain, p.treble_gain, RATE,
+            p.dry_wet_kill_start, p.air_absorption, device=device))
+        surround = both("apply_surround_panning_3d", lambda device: compat.apply_surround_panning_3d(
+            mixed, p.x_pos, p.y_pos, p.z_pos, device=device))
+        mapped = both("map_channels 5.1", lambda device: compat.map_channels(
+            surround, p.target_layout, RATE, p.z_pos, device=device), pick=lambda r: r[0])[0]
+        chain_err = float(np.abs(mapped - six).max())
+        check(mapped.shape == six.shape and chain_err <= RENDER_TOL,
+              f"8c: the chain's end vs 8a's render {chain_err} > {RENDER_TOL}")
+        for layout in ("7.1 (Surround)", "5.1.2 (Atmos Light)"):
+            wide, names = both(f"map_channels {layout}", lambda device: compat.map_channels(
+                surround, layout, RATE, 0.8, device=device), pick=lambda r: r[0])
+            check(wide.shape == (surround.shape[0], 8) and len(names) == 8, f"8c: {layout} {wide.shape}")
+        ext = both("convolve_audio_external_ir", lambda device: compat.convolve_audio_external_ir(
+            audio, ir_read, 0.6, 1.4, 0.8, RATE, 0.5, device=device))
+        check(ext.shape == (n + n_ir - 1, 2), f"8c: external {ext.shape}")
+        both("apply_simple_lp_filter", lambda device: compat.apply_simple_lp_filter(
+            mixed, RATE, 0.5, device=device))
+        m_card = compat.calculate_audio_metrics(mapped, RATE, device=str(dev))
+        m_cpu = compat.calculate_audio_metrics(mapped, RATE, device="cpu")
+        d = check_metrics(m_card, m_cpu, "8c: calculate_audio_metrics card vs CPU")
+        d_render = check_metrics(m_card, six_m, "8c: the chain's metrics vs 8a's render's")
+        timing["compat"] = {"gaps": gaps, "chain_vs_render_max_abs": chain_err,
+                            "metrics_card_vs_cpu": d, "metrics_chain_vs_render": d_render}
+        print(f"[8c compat] IR, split convolve (EQ, air), pan, map 5.1 / 7.1 / 5.1.2, external "
+              f"IR, LP filter on {seconds:.0f} s: card vs CPU max-abs "
+              f"{max(g['max_abs'] for g in gaps.values()):.3e} at most (tol {RENDER_TOL}); the "
+              f"chain's end vs 8a's render {chain_err:.3e}; metrics card vs CPU {max(d):.1e}, "
+              f"vs the render's {max(d_render):.1e}", flush=True)
+        del early, late, mixed, surround, mapped, ext, wide
+
+        # ---------------- 8d: the studio over HTTP ----------------
+        steps = ["upload", "process", "download", "profiler", "analyzer_ui"]
+        store = PresetStore(work)
+        server = StudioHTTPServer(studio.build_demo(store), host="127.0.0.1", port=0).start()
+        try:
+            def state():
+                code, body = http_call(server.port, "GET", "/state")
+                check(code == 200, f"8d: /state answered {code}")
+                return json.loads(body)["components"]
+
+            def by_label(comps, label, nth=0):
+                return [c for c in comps if c["label"] == label][nth]
+
+            def event(label, sets=None, nth=0):
+                comps = state()
+                payload = {"id": by_label(comps, label, nth)["id"], "event": "click",
+                           "set": {str(by_label(comps, k)["id"]): v for k, v in (sets or {}).items()}}
+                code, body = http_call(server.port, "POST", "/event", json.dumps(payload).encode())
+                check(code == 200, f"8d: {label} answered {code}: {body[:300]}")
+                return json.loads(body)["components"]
+
+            comps = state()
+            check(by_label(comps, "📊 Ergebnis-Metriken (Gesamt)")["value"]
+                  == "Bereit. Bitte Audio laden.", "8d: the startup initializer did not run")
+            marker_value = by_label(comps, "🎯 Position (X/Y)")["value"]
+            if have["pil"]:
+                check(marker_value and os.path.isfile(marker_value), "8d: no marker was drawn")
+                made.append(marker_value)
+                steps.append("startup marker")
+            else:
+                check(marker_value is None, f"8d: a marker without PIL: {marker_value}")
+            with open(path("song.wav"), "rb") as fh:
+                code, body = http_call(server.port, "POST", "/upload", fh.read(),
+                                       {"X-Filename": "song.wav"})
+            check(code == 200, f"8d: /upload answered {code}")
+            uploaded = json.loads(body)["path"]
+            # the button passes no seed: the draw comes from os.urandom; pin it to 8a's
+            four = (3).to_bytes(4, "little")
+            answer = {}
+            before = bank.launch_count
+            with unittest.mock.patch.object(os, "urandom", lambda k: (four * (k // 4 + 1))[:k]):
+                t0 = time.perf_counter()
+                worker = threading.Thread(target=lambda: answer.update(comps=event(
+                    "➡️ Verarbeiten & Anhören!",
+                    {"🔊 Audio hochladen": uploaded, "🎯 Ziel-Layout": "Stereo",
+                     "🏛️ Hall-Typ": "Room"})))
+                worker.start()
+                polls = 0
+                while worker.is_alive():  # state polls are not held up by the render
+                    state()
+                    polls += 1
+                    time.sleep(0.01)
+                worker.join()
+                event_s = time.perf_counter() - t0
+            check("comps" in answer, "8d: the process event failed")
+            out["launches"] += bank.launch_count - before
+            check(bank.launch_count - before == (1 if on_card else 0),
+                  "8d: the process button did not make one bank call")
+            result = by_label(state(), "🎧 Ergebnis anhören")
+            check(result["value"] and result.get("url"), f"8d: no result in /state: {result}")
+            made.append(result["value"])
+            t0 = time.perf_counter()
+            code, body = http_call(server.port, "GET", result["url"])
+            download_s = time.perf_counter() - t0
+            check(code == 200 and body == refs["room_stereo"][2],
+                  f"8d: GET /file answered {code}, {len(body)} bytes; differs from 8a's WAV")
+            text = by_label(answer["comps"], "📊 Ergebnis-Metriken (Gesamt)")["value"]
+            check(text == metrics_string(refs["room_stereo"][1]), f"8d: metrics {text!r}")
+            code, _ = http_call(server.port, "GET", "/file?path=" + path("direct.wav"))
+            check(code == 403, f"8d: a file outside the allowlist answered {code}")
+            # the profiler on (input, output)
+            t0 = time.perf_counter()
+            comps = event("🚀 Analysieren!", {"Lade Original (Profiler)": uploaded,
+                                             "Lade Bearbeitet (Profiler)": result["value"]})
+            profiler_s = time.perf_counter() - t0
+            report = by_label(comps, "📋 Analysebericht")["value"]
+            file_m = calculate_audio_metrics(wavio.read(result["value"])[0], RATE)
+            check("Zusammenfassung" in report and f"{file_m['lufs']:.2f} LUFS" in report
+                  and f"{seconds + (refs['room_stereo'][0].shape[0] - n) / RATE:.2f}s" in report,
+                  f"8d: profiler report {report[:600]}")
+            vis_s = None
+            if have["matplotlib"]:
+                t0 = time.perf_counter()
+                comps = event("📊 Visualisieren", {"🔍 Original (Visualizer)": uploaded,
+                                                  "🔍 Bearbeitet (Visualizer)": result["value"]})
+                vis_s = time.perf_counter() - t0
+                for label in ("🔵 Original Vis", "🟠 Bearbeitet Vis"):
+                    img = by_label(comps, label)
+                    code, png = http_call(server.port, "GET", img["url"])
+                    check(code == 200 and png[:4] == b"\x89PNG" and len(png) > 10000,
+                          f"8d: {label} answered {code}, {len(png)} bytes")
+                    made.append(img["value"])
+                steps.append("visualizer png")
+        finally:
+            server.stop()
+        # the analyzer UI's handlers on the 6-channel file
+        wavio.write(path("six.wav"), np.clip(six, -config.OUTPUT_CLIP, config.OUTPUT_CLIP), RATE,
+                    subtype="PCM_16")
+        demo = analyzer_ui.build_demo()
+        demo.set_value("Audiodatei hochladen", path("six.wav"))
+        t0 = time.perf_counter()
+        demo.fire(demo.get("Analysieren"), "click")
+        analyze_s = time.perf_counter() - t0
+        res = json.loads(demo.get("Analyse").value)
+        check(res["Kanäle"] == 6 and abs(res["LUFS"] - six_m["lufs"]) <= 0.02,
+              f"8d: do_analyze {res} vs {six_m}")
+        demo.set_value("Ziel-LUFS", -16)
+        demo.fire(demo.get("Auf Ziel-LUFS normalisieren"), "click")
+        norm = demo.get("Normalisierte Datei").value
+        check(norm and os.path.isfile(norm), f"8d: do_normalize: {demo.get('Bericht').value}")
+        made.append(norm)
+        lufs_n = calculate_audio_metrics(wavio.read(norm)[0], RATE)["lufs"]
+        check(abs(lufs_n + 16.0) <= 0.05, f"8d: normalized to {lufs_n} LUFS")
+        timing["http"] = {"process_event_s": event_s, "state_polls_during_event": polls,
+                          "download_s": download_s, "profiler_event_s": profiler_s,
+                          "visualizer_event_s": vis_s, "analyzer_do_analyze_s": analyze_s}
+        out["steps"] = steps
+        print(f"[8d studio] {json.dumps(have)} steps {steps}: upload, process button over POST "
+              f"/event ({event_s:.3f} s, {polls} /state polls meanwhile), GET /file = 8a's WAV "
+              f"bit for bit, 403 outside the allowlist, profiler report on (input, output), "
+              f"analyzer UI on the 6-channel file (LUFS {res['LUFS']}, normalized to "
+              f"{lufs_n:.3f})", flush=True)
+    finally:
+        os.chdir(old_cwd)
+        runtime.set_default_device(previous)
+        for file in made:
+            if file and os.path.exists(file):
+                os.remove(file)
+    out["timing"] = timing
+    return out
+
+
+def rehearse_cpu(seconds: float) -> int:
+    """``--rehearse-cpu SECONDS``: phase 8's control flow on the CPU at a
+    short clip length, with the kernels' plain versions.  It measures nothing
+    and prints no result line; it exists to find wrong paths, shapes and
+    names before a run on the card."""
+    import numpy as np
     import torch
+
+    sys.path.insert(0, REPO)
+    from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda as bank
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_product_")
+    try:
+        product = product_phase(np, torch, bank, work, seconds=seconds, device="cpu")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("[8 rehearsal on the CPU: no device number] " + json.dumps(product["timing"]))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU; "
+                                 "with no arguments every phase runs and the result lines print.")
+    ap.add_argument("--only", choices=["8"], default=None,
+                    help="development: phases 1, 2 and this one; prints no result line")
+    ap.add_argument("--rehearse-cpu", type=float, default=None, metavar="SECONDS",
+                    help="development: phase 8's control flow on the CPU at this clip length")
+    args = ap.parse_args(argv)
+    if args.rehearse_cpu is not None:
+        return rehearse_cpu(args.rehearse_cpu)
 
     # --- 1. environment ---
     if not torch.cuda.is_available():
@@ -1300,6 +1819,25 @@ def main() -> int:
     bank._launcher(), bank._injected_launcher()  # both symbols bind
     print(f"[2 build] {os.path.relpath(lib, REPO)} (rir_bank_launch, "
           f"rir_bank_injected_launch) in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    def product():
+        """Phase 8 in a temporary directory, its bank calls counted from 0."""
+        bank.launch_count = 0
+        work = tempfile.mkdtemp(prefix="chip_smoke_product_")
+        try:
+            result = product_phase(np, torch, bank, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print("[8 timing] " + json.dumps({"card": card, "nvidia_smi": smi, **result["timing"],
+                                          "matplotlib": result["matplotlib"],
+                                          "pil": result["pil"], "steps": result["steps"]}),
+              flush=True)
+        return result
+
+    if args.only == "8":
+        product()
+        print("chip_smoke: --only 8 ran phases 1, 2 and 8; a partial run prints no result line")
+        return 0
 
     # --- 3. bank check: kernel vs plain on the card ---
     p = RenderParams(target_layout="Stereo")
@@ -1530,6 +2068,12 @@ def main() -> int:
     print("[7 timing] " + json.dumps({"card": card, "nvidia_smi": smi, **serving["timing"]}),
           flush=True)
 
+    # --- 8. the product surfaces: the render API, the studio, the visualizer, compat ---
+    torch.cuda.empty_cache()
+    result = product()
+    main_launches += result["launches"]
+    bank_err = max(bank_err, *result["bank_errs"])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -1540,7 +2084,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
-        "launches": main_launches,  # phases 4, 4c, 6 and 7
+        "launches": main_launches,  # phases 4, 4c, 6, 7 and 8
         "max_abs_err": bank_err,
         "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],

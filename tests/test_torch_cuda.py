@@ -4,7 +4,10 @@ render paths through them, and the parity path at full size (BASELINE
 configs 1-5, 60 s at 48 kHz) against the float64 oracle; the binaural mix
 and ``resample_poly`` on the card against the CPU at 60 s; the serving
 batcher's pipelined groups (one CUDA stream each, page-locked staging)
-against direct ``render_batch`` calls, bit for bit.
+against direct ``render_batch`` calls, bit for bit; the visualizer's device
+STFT against scipy at 60 s, ``process_audio_main_v41`` on the card against
+the same call on the CPU, and the ``compat`` chain at 60 s against its
+float64 ``"oracle"`` arms.
 
 Marked ``cuda``; each test skips (with a reason) where no card is present,
 as on a CPU-only machine.  This file imports no JAX (the oracle is NumPy and
@@ -482,3 +485,108 @@ def test_pinned_staging_reuse_keeps_groups_apart(cuda):
         want = sharding.render_batch(np.stack(clips[2 * g: 2 * g + 2]), rate, p,
                                      seeds=[2 * g, 2 * g + 1], device=cuda)
         assert np.array_equal(got, want), g
+
+
+# --- the product surfaces on the card: the device STFT, the render API, compat ---
+
+STFT_TOL = 1e-5  # of the power matrix's maximum (tests/test_torch_visualize.py's bound)
+
+
+@pytest.fixture
+def cuda_default(cuda):
+    from audio_raytracing_studio_tpu_torch.utils import runtime
+
+    previous = runtime.set_default_device("cuda")
+    yield cuda
+    runtime.set_default_device(previous)
+
+
+def test_device_stft_on_card_matches_scipy_at_60s(cuda_default):
+    from audio_raytracing_studio_tpu_torch.analysis import visualize
+
+    x = parity_clips()[0]
+    nperseg = visualize.spectrogram_nperseg(PARITY_SECONDS)
+    f, t, sxx = visualize.compute_spectrogram(x, PARITY_RATE, nperseg, use_device=True)
+    fs, ts, ss = visualize.compute_spectrogram(x, PARITY_RATE, nperseg)
+    _, _, sc = visualize.compute_spectrogram(x, PARITY_RATE, nperseg, use_device=True,
+                                             device="cpu")
+    assert nperseg == 4096 and sxx.shape == ss.shape == (2049, (len(x) - 4096) // 2048 + 1)
+    assert np.allclose(f, fs) and np.allclose(t, ts)
+    top = float(ss.max())
+    assert float(np.abs(sxx - ss).max()) / top <= STFT_TOL
+    assert float(np.abs(sxx - sc).max()) / top <= STFT_TOL
+
+
+@pytest.mark.parametrize("n", [4095, 777])
+def test_device_stft_on_card_odd_one_frame(cuda, n):
+    from audio_raytracing_studio_tpu_torch.analysis import visualize
+
+    x = parity_clips()[0][:n]
+    _, _, sxx = visualize.compute_spectrogram(x, PARITY_RATE, n, use_device=True, device=cuda)
+    _, _, ss = visualize.compute_spectrogram(x, PARITY_RATE, n)
+    assert sxx.shape == ss.shape == (n // 2 + 1, 1)
+    assert float(np.abs(sxx - ss).max()) / float(ss.max()) <= STFT_TOL
+
+
+def test_process_audio_main_on_card_matches_cpu_path(cuda_default, tmp_path):
+    """The app's call on the card against the same call with the CPU as the
+    process-wide device: PCM16 within 1 LSB, metrics within 0.01 LU / 0.1 dB
+    as printed; one bank call."""
+    import os
+    import re
+
+    from audio_raytracing_studio_tpu_torch import config
+    from audio_raytracing_studio_tpu_torch.app import api
+    from audio_raytracing_studio_tpu_torch.utils import runtime, wavio
+
+    mono = parity_clips()[0]
+    wavio.write(tmp_path / "in.wav", np.stack([mono, 0.7 * mono[::-1]], axis=1), PARITY_RATE)
+    p = RenderParams(hall_type="Cathedral", room_size=300.0, target_layout="5.1 (Standard)",
+                     bass_gain=1.6, treble_gain=0.7)
+    args = [getattr(p, k) for k in config.PRESET_KEYS]
+    before = bank.launch_count
+    card = api.process_audio_main_v41(str(tmp_path / "in.wav"), None, None, *args, seed=2**32 - 1)
+    assert bank.launch_count == before + 1
+    runtime.set_default_device("cpu")
+    cpu = api.process_audio_main_v41(str(tmp_path / "in.wav"), None, None, *args, seed=2**32 - 1)
+    assert bank.launch_count == before + 1  # the CPU call took the plain version
+    try:
+        (a, ra), (b, rb) = wavio.read(card[0]), wavio.read(cpu[0])
+        assert ra == rb == PARITY_RATE and a.shape == b.shape and a.shape[1] == 6
+        assert np.abs(np.rint(a * 32768.0) - np.rint(b * 32768.0)).max() <= 1
+        na, nb = ([float(v) for v in re.findall(r"-?\d+\.\d+", s)] for s in (card[2], cpu[2]))
+        assert abs(na[0] - nb[0]) <= LU_TOL + 1e-9 and max(abs(x - y) for x, y in zip(na, nb)) <= 0.1 + 1e-9
+    finally:
+        for res in (card, cpu):
+            os.remove(res[0])
+
+
+def test_compat_chain_on_card_matches_oracle_at_60s(cuda):
+    """The reference's chain through the façade on the card against the same
+    chain through its float64 ``"oracle"`` arms: ≤ 1e-3 at every stage."""
+    from audio_raytracing_studio_tpu_torch import compat
+
+    mono = parity_clips()[0]
+    audio = np.stack([mono, 0.7 * mono[::-1]], axis=1)
+    p = RenderParams(hall_type="Cathedral", room_size=300.0, air_absorption=0.3, bass_gain=1.6,
+                     treble_gain=0.7, x_pos=0.3, y_pos=0.65, z_pos=0.45)
+    dur, refs, maxd, split = compat.adjust_parameters_for_3d(p.hall_type, p.room_size, p.z_pos)
+    direc = compat.compute_final_directionality_3d(p.x_pos, p.y_pos, p.z_pos, p.hall_type,
+                                                   p.diffusion, p.dry_wet)
+    el, ll = compat.adapt_early_late_levels(p.dry_wet, p.early_level, p.late_level)
+
+    def chain(**kw):
+        e, l = compat.generate_impulse_response_split_3d(
+            PARITY_RATE, dur, refs, maxd, p.material, direc, split, p.diffusion, seed=5, **kw)
+        mixed = compat.convolve_audio_split_3d(audio, e, l, el, ll, p.dry_wet, p.bass_gain,
+                                               p.treble_gain, PARITY_RATE, p.dry_wet_kill_start,
+                                               p.air_absorption, **kw)
+        six = compat.apply_surround_panning_3d(mixed, p.x_pos, p.y_pos, p.z_pos, **kw)
+        wide = compat.map_channels(six, "5.1.2 (Atmos Light)", PARITY_RATE, p.z_pos, **kw)[0]
+        return e, l, mixed, six, wide, compat.calculate_audio_metrics(wide, PARITY_RATE, **kw)
+
+    got, want = chain(device=cuda), chain(backend="oracle")
+    for a, b in zip(got[:5], want[:5]):
+        assert a.shape == b.shape
+        assert float(np.abs(a.astype(np.float64) - b).max()) <= ORACLE_TOL
+    assert_metrics_close(got[5], want[5])

@@ -2,7 +2,10 @@
 audio_raytracing_studio_tpu_torch is imported in a fresh interpreter, which
 must end with no ``jax`` module loaded and no module of the JAX package
 (``audio_raytracing_studio_tpu`` or anything under it) — the port keeps its
-own copies of ``config``, ``params`` and ``metering.kweighting``."""
+own copies of ``config``, ``params``, ``metering.kweighting``, the float64
+oracle and the JAX-free ``app`` modules.  Nor does importing the port pull in
+matplotlib or PIL, which may be absent beside the card: the modules that draw
+import them inside the functions that do."""
 
 import os
 import pkgutil
@@ -29,7 +32,10 @@ def test_every_port_module_is_listed():
                      "utils.kernels", "config", "params", "metering.kweighting",
                      "utils.runtime", "utils.wavio", "utils.presets", "analysis.metrics",
                      "ops.binaural", "cli.render", "cli.render_dir", "cli.analyzer",
-                     "serving.batcher", "serving.service", "utils.uploads", "utils.httpbase"):
+                     "serving.batcher", "serving.service", "utils.uploads", "utils.httpbase",
+                     "oracle.dsp", "oracle.loudness", "analysis.visualize",
+                     "analysis.profiler", "app.marker", "app.api", "app._gradio_headless",
+                     "app.server", "app.studio", "app.analyzer_ui", "__main__", "compat"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -41,6 +47,7 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'audio_raytracing_studio_tpu'\n"
         "             or m.startswith('audio_raytracing_studio_tpu.'))\n"
+        "bad += sorted(m for m in sys.modules if m.split('.')[0] in ('matplotlib', 'PIL'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

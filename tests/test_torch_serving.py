@@ -748,3 +748,64 @@ def test_submits_from_many_threads_all_resolve():
 def test_memory_stats_on_the_cpu_reads_zero_runtime_fields():
     st = batcher.memory_stats("cpu")
     assert st["rss_mb"] > 0 and st["fft_plans"] == 0 and st["pinned_mb"] == 0
+
+
+@pytest.mark.parametrize("dtype, kept", [(np.float32, True), (np.float64, False)])
+def test_submit_keeps_a_view_of_a_float32_array(dtype, kept):
+    """The contract in ``submit``'s doc string: a float32 array is kept, not
+    copied, so a write before the future resolves changes the render; an
+    array of another type is converted (copied) at submit."""
+    p = RenderParams(**BASE)
+    first, second = make_clip(1), make_clip(3)
+    buf = first.astype(dtype)
+    svc = service(max_batch=2, max_wait_ms=20, start=False)
+    fut = svc.submit(RenderJob(buf, RATE, p, seed=4))
+    buf[:] = second  # the caller reuses its buffer while the job is queued
+    svc.start()
+    try:
+        out = fut.result(timeout=300).audio
+    finally:
+        svc.stop()
+    rendered = second if kept else first
+    np.testing.assert_allclose(out, padded_reference(rendered, p, 4), atol=TOL)
+    other = padded_reference(first if kept else second, p, 4)
+    assert np.abs(out - other).max() > 1e-2
+
+
+def test_pipeline_depth_doc_counts_depth_plus_one_groups():
+    """With depth 2 the worker dispatches a third group before it blocks on
+    the completer's one-slot queue: depth + 1 groups hold buffers at once."""
+    svc = service(max_batch=1, max_wait_ms=1, pipeline_depth=2, start=False)
+    assert svc._cq.maxsize == svc.pipeline_depth - 1
+    assert "depth + 1" in RenderService.__doc__
+    p = RenderParams(**BASE)
+    release, fetching = threading.Event(), threading.Event()
+    dispatched = []
+    real = svc._render_group
+
+    def counting(items, stream=None):
+        fetch, uploaded = real(items, stream)
+        dispatched.append(len(items))
+
+        def gated():
+            fetching.set()
+            release.wait(timeout=60)
+            return fetch()
+        return gated, uploaded
+
+    svc._render_group = counting
+    futs = [svc.submit(RenderJob(make_clip(i, seconds=0.1), RATE, p, seed=i)) for i in range(5)]
+    svc.start()
+    try:
+        assert fetching.wait(timeout=60)
+        deadline = time.time() + 30
+        while len(dispatched) < 3 and time.time() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.2)  # a fourth dispatch would have come by now
+        assert len(dispatched) == svc.pipeline_depth + 1
+        release.set()
+        wait_all(futs)
+    finally:
+        release.set()
+        svc.stop()
+    assert len(dispatched) == 5
