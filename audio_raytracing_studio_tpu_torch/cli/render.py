@@ -11,8 +11,10 @@ Examples:
   python -m audio_raytracing_studio_tpu_torch.cli.render in.wav out_{i}.wav \
       --preset my_hall_v4.json --sweep diffusion=0.1,0.5,0.9 --seed 7
 
-The port reads WAV and AIFF and writes WAV; the streaming render
-(``--stream``) is not ported yet and exits 2.
+  python -m audio_raytracing_studio_tpu_torch.cli.render long.wav out.wav \
+      --stream --chunk-seconds 30 --layout "5.1 (Standard)" --metrics
+
+The port reads WAV and AIFF and writes WAV.
 """
 
 from __future__ import annotations
@@ -94,11 +96,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--stream", action="store_true",
-        help="chunked streaming render (not ported yet: exits 2)",
+        help="chunked streaming render for long clips (no whole-clip convolution FFT)",
     )
-    # accepted so that the JAX CLI's command lines run unchanged; it sizes
-    # the chunks of --stream, which is not ported yet
-    ap.add_argument("--chunk-seconds", type=float, default=30.0, help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--chunk-seconds", type=float, default=30.0,
+        help="streaming chunk size in seconds (with --stream)",
+    )
     return ap
 
 
@@ -187,13 +190,6 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    if args.stream:
-        print(
-            "error: --stream (the chunked streaming render) is not ported to "
-            "the PyTorch package yet; render the whole clip without --stream",
-            file=sys.stderr,
-        )
-        return 2
     try:
         audio, rate = wavio.read(args.input)
     except (OSError, ValueError) as e:
@@ -217,6 +213,15 @@ def main(argv=None) -> int:
     # numbers are actually reported
     want_metrics = args.metrics or args.json
     results = []
+    if args.sweep and args.stream:
+        # the sweep path batches whole-clip renders in memory — silently
+        # dropping --stream would defeat the reason it was passed
+        print(
+            "error: --stream cannot be combined with --sweep (sweeps render "
+            "whole clips in device memory; run one streaming render per value)",
+            file=sys.stderr,
+        )
+        return 2
     if args.sweep:
         if _format_output(args.output, 0) == _format_output(args.output, 1):
             # behavioral check: any usable placeholder ({i}, {i:03d}, …)
@@ -276,6 +281,30 @@ def main(argv=None) -> int:
         except (OSError, ValueError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
+    elif args.stream:
+        from ..parallel.streaming import render_streaming
+
+        try:
+            # without the binaural downmix the output contract is PCM16, so
+            # quantize on the device: half the bytes come down
+            res = render_streaming(
+                audio, rate, base_params, seed=args.seed,
+                chunk_seconds=args.chunk_seconds, with_metrics=want_metrics,
+                external_ir=external_ir, external_ir_rate=external_rate,
+                pcm16_output=not args.binaural,
+                # the single-clip CLI contract is the exact filter stack
+                # (pipeline.render's default)
+                fast_filters=False, device=args.device,
+            )
+            out, metrics = res if want_metrics else (res, None)
+            out_path = _format_output(args.output, 0)
+            metrics = _finalize_and_write(
+                out, out_path, rate, args, base_params.target_layout, metrics
+            )
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        results.append({"output": out_path, "metrics": metrics})
     else:
         from ..models import pipeline
 

@@ -6,13 +6,13 @@ the exact signal length — the reference's definition
 parity-bearing.  Each filter is one ``rfft(x, n)`` · gain · ``irfft(·, n)``
 at the exact n (cuFFT takes any n; the JAX package's Bluestein and
 affine-wrap forms compute the same circular filter).  Gain curves are
-built on the host in float64 from the static (n, rate) grid; the user
+built on the signal's device in float64 from the static (n, rate) grid —
+``np.fft.rfftfreq``'s arithmetic, so the masks' edge bins fall where the
+reference's do — and nothing of them is kept between calls; the user
 gains are per-clip (B,) tensors.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -21,41 +21,30 @@ from .. import config
 from .ir_synth import to_device
 
 
-def _air_ramp_np(n: int, rate: int) -> np.ndarray:
-    """Static air-absorption ramp per rfft bin (host float64): 0 below the
-    2 kHz start, rising linearly to 1 at Nyquist."""
-    freqs = np.fft.rfftfreq(n, d=1.0 / rate)
+def _rfft_freqs(n: int, rate: int, device) -> torch.Tensor:
+    """``np.fft.rfftfreq(n, d=1/rate)`` in float64 on ``device``, bit for bit
+    (the same integer bins times the same spacing, one IEEE product each)."""
+    val = 1.0 / (n * (1.0 / rate))
+    return torch.arange(n // 2 + 1, dtype=torch.float64, device=device) * val
+
+
+def _air_ramp(n: int, rate: int, device) -> torch.Tensor:
+    """Static air-absorption ramp per rfft bin, float64 arithmetic → float32:
+    0 below the 2 kHz start, rising linearly to 1 at Nyquist."""
+    freqs = _rfft_freqs(n, rate, device)
     start = config.AIR_ABSORPTION_START_HZ
-    max_freq = freqs[-1] if len(freqs) > 0 else start + 1
-    if max_freq > start:
-        ramp = np.clip((freqs - start) / (max_freq - start), 0.0, 1.0)
-        return np.where(freqs >= start, ramp, 0.0)
-    return np.zeros_like(freqs)
+    max_freq = (n // 2) * (1.0 / (n * (1.0 / rate)))  # freqs[-1], without a device read
+    if max_freq <= start:
+        return torch.zeros(freqs.shape, dtype=torch.float32, device=device)
+    ramp = ((freqs - start) / (max_freq - start)).clamp(0.0, 1.0)
+    return torch.where(freqs >= start, ramp, 0.0).to(torch.float32)
 
 
-def _bass_mask_np(n: int, rate: int) -> np.ndarray:
-    """Static bass-shelf bin mask (host float64): (0, 250] Hz."""
-    freqs = np.fft.rfftfreq(n, d=1.0 / rate)
-    return ((freqs > 1e-6) & (freqs <= config.EQ_BASS_CUTOFF_HZ)).astype(np.float64)
-
-
-def _treble_mask_np(n: int, rate: int) -> np.ndarray:
-    """Static treble-shelf bin mask (host float64): [4 kHz, ∞)."""
-    freqs = np.fft.rfftfreq(n, d=1.0 / rate)
-    return (freqs >= config.EQ_TREBLE_CUTOFF_HZ).astype(np.float64)
-
-
-@functools.lru_cache(maxsize=8)
-def _curve(name: str, n: int, rate: int) -> np.ndarray:
-    """float32 copy of one static curve, cached read-only per (n, rate)."""
-    fn = {"air_ramp": _air_ramp_np, "bass": _bass_mask_np, "treble": _treble_mask_np}[name]
-    curve = fn(n, rate).astype(np.float32)
-    curve.flags.writeable = False
-    return curve
-
-
-def _curve_tensor(name: str, n: int, rate: int, device) -> torch.Tensor:
-    return to_device(_curve(name, n, rate).copy(), device)
+def _shelf_masks(n: int, rate: int, device):
+    """Static shelf bin masks: bass (0, 250] Hz, treble [4 kHz, ∞)."""
+    freqs = _rfft_freqs(n, rate, device)
+    bass = (freqs > 1e-6) & (freqs <= config.EQ_BASS_CUTOFF_HZ)
+    return bass, freqs >= config.EQ_TREBLE_CUTOFF_HZ
 
 
 def _circular_gain(signal: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
@@ -70,7 +59,7 @@ def _circular_gain(signal: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
 
 def air_absorption_gain(n_fft: int, rate: int, factor: torch.Tensor) -> torch.Tensor:
     """Per-bin gain (B, F): 1.0 below 2 kHz, ramping to 1−0.8·factor at Nyquist."""
-    ramp = _curve_tensor("air_ramp", n_fft, rate, factor.device)
+    ramp = _air_ramp(n_fft, rate, factor.device)
     max_damping = factor.clamp(0.0, 1.0) * config.AIR_ABSORPTION_MAX_DAMPING
     return 1.0 - ramp[None, :] * max_damping[:, None]
 
@@ -93,12 +82,10 @@ def shelf_eq_gain(
     n_fft: int, rate: int, bass_gain: torch.Tensor, treble_gain: torch.Tensor
 ) -> torch.Tensor:
     """Per-bin gain (B, F): bass on (0, 250] Hz, treble on [4 kHz, ∞)."""
-    device = bass_gain.device
-    bass_mask = _curve_tensor("bass", n_fft, rate, device).bool()[None, :]
-    treble_mask = _curve_tensor("treble", n_fft, rate, device).bool()[None, :]
+    bass_mask, treble_mask = _shelf_masks(n_fft, rate, bass_gain.device)
     lo, hi = config.EQ_GAIN_CLIP
-    gain = torch.where(bass_mask, bass_gain.clamp(lo, hi)[:, None], 1.0)
-    return torch.where(treble_mask, treble_gain.clamp(lo, hi)[:, None], gain)
+    gain = torch.where(bass_mask[None, :], bass_gain.clamp(lo, hi)[:, None], 1.0)
+    return torch.where(treble_mask[None, :], treble_gain.clamp(lo, hi)[:, None], gain)
 
 
 def apply_shelf_eq(

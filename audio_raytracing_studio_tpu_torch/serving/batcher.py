@@ -27,6 +27,10 @@ buckets them by shape, and dispatches each bucket as one
 * Each job's output is trimmed back to its true span
   (``clip_len + ir_len − 1``) and, with metrics on, metered on the device
   against the true span (masked meter), never the bucket padding.
+* A clip longer than ``streaming_threshold_s`` is a group of its own (key
+  ``("streaming", uuid)``) and renders through the chunked
+  ``parallel.streaming.render_streaming`` on its group's stream (no
+  whole-clip convolution FFT, no padded batch).
 
 Padding semantics: zero-padding a clip to its length bucket is exact for
 every linear-convolution stage, and the exact air filter's smooth gain ramp
@@ -42,9 +46,7 @@ In this eager runtime the half-second bucket and the power-of-two batch
 sizes are batching keys that bound the cuFFT plan set and the allocator's
 block sizes; nothing is compiled per shape.
 
-Not ported yet: the streaming renderer (``parallel/streaming.py``), so a job
-past ``streaming_threshold_s`` is refused at ``submit``; meshes
-(``device_mesh`` raises).
+Not ported yet: meshes (``device_mesh`` raises).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ import logging
 import queue
 import threading
 import time
+import uuid
 import weakref
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional
@@ -186,12 +189,11 @@ class RenderService:
     fast_filters: conv-grid air absorption (≤2e-4 deviation) instead of the
                   reference's exact-length transform.
     pcm16_output: quantize to int16 on the device (halves the copy down).
-    streaming_threshold_s: clips longer than this belong to the
-                  bounded-memory streaming renderer, which is not ported
-                  yet: ``submit`` refuses them with a ValueError.  They are
-                  never rendered single-shot instead.  None disables.
-    chunk_seconds: streaming chunk size for routed long jobs (kept for the
-                  streaming renderer; unused until it is ported).
+    streaming_threshold_s: clips longer than this route to the chunked
+                  streaming renderer (``parallel.streaming``)
+                  as singleton groups, with the service's ``fast_filters``
+                  and ``pcm16_output``; None disables the routing.
+    chunk_seconds: streaming chunk size for routed long jobs.
     max_queued:   submit() raises RuntimeError once this many jobs are
                   waiting (backpressure — each queued job holds its whole
                   decoded clip in host RAM; HTTP maps this to 503).
@@ -453,17 +455,10 @@ class RenderService:
         # EQ-on jobs bucket like everything else: render_batch EQs each
         # padded clip at its true length
         n_bucket = sharding.bucket_length(clip.shape[0], rate)
-
-        if (
+        streaming = (
             self.streaming_threshold_s is not None
             and clip.shape[0] > self.streaming_threshold_s * rate
-        ):
-            raise ValueError(
-                f"clip of {clip.shape[0] / rate:.1f} s is past streaming_threshold_s="
-                f"{self.streaming_threshold_s:g}: such jobs belong to the streaming "
-                "renderer (parallel.streaming), which is not ported to the PyTorch "
-                "package yet; split the clip or raise the threshold"
-            )
+        )
 
         if job.params.use_external_ir:
             if job.external_ir is None:
@@ -473,6 +468,11 @@ class RenderService:
                 int(job.external_ir_rate) if job.external_ir_rate else rate,
                 rate,
             ).numpy()
+            if streaming:
+                # a singleton group; n_bucket = the true length, so the trim
+                # keeps the whole len_out
+                key = ("streaming", uuid.uuid4().hex)
+                return _Item(job, None, key, clip, clip.shape[0], prepared)
             # jobs sharing the same prepared IR bytes may share one batch
             # (render_batch convolves the whole batch against ONE IR)
             ir_digest = hashlib.sha1(prepared.tobytes()).hexdigest()
@@ -481,6 +481,10 @@ class RenderService:
                 prepared.shape, ir_digest, bool(job.with_metrics),
             )
             return _Item(job, None, key, clip, n_bucket, prepared)
+
+        if streaming:
+            key = ("streaming", uuid.uuid4().hex)
+            return _Item(job, None, key, clip, clip.shape[0], None)
 
         # shape-only derivation (render_batch rebuilds the full setup at
         # dispatch)
@@ -614,10 +618,13 @@ class RenderService:
         results = []
         for it in items:
             real_len = it.clip.shape[0] + ir_tail
-            # .copy(): the slice is a VIEW of the whole (batch, len_out, ch)
-            # pinned buffer — one retained job result would pin the entire
-            # batch's bytes, and page-locked ones at that
-            audio = outs[len(results), :real_len].copy()
+            audio = outs[len(results), :real_len]
+            if items[0].key[0] != "streaming":
+                # .copy(): the slice is a VIEW of the whole (batch, len_out,
+                # ch) pinned buffer — one retained job result would pin the
+                # entire batch's bytes, and page-locked ones at that (a
+                # streamed job's result is an array of its own already)
+                audio = audio.copy()
             with self._lock:
                 self._retained_result_bytes += audio.nbytes
                 self._retained_results += 1
@@ -661,7 +668,12 @@ class RenderService:
 
         Returns the bucket sizes warmed.
         """
-        item = self._prepare(job)  # a job past the streaming threshold raises
+        item = self._prepare(job)
+        if item.key[0] == "streaming":
+            raise ValueError(
+                "streaming-routed jobs have no batch buckets to warm "
+                "(the streaming renderer keys on chunk shape, not batch)"
+            )
         if sizes is None:
             sizes = self.bucket_sizes()
         else:
@@ -704,6 +716,8 @@ class RenderService:
         uploaded_bytes)``; the zero-argument ``fetch()`` waits for the copy
         down and produces ``(outs, metrics)`` — on the completer thread in
         pipelined mode."""
+        if items[0].key[0] == "streaming":
+            return self._render_streaming(items[0], stream)
         n_bucket = items[0].n_bucket
         rate = int(items[0].job.rate)
         with_metrics = bool(items[0].job.with_metrics)
@@ -759,3 +773,27 @@ class RenderService:
 
         return fetch, uploaded
 
+    def _render_streaming(self, it: _Item, stream=None):
+        """One long job through ``parallel.streaming.render_streaming`` on
+        ``stream``, here on the worker: it uploads, renders and copies down
+        in chunks and returns host arrays, so ``fetch()`` only hands them
+        out.  Returns ``(fetch, uploaded_bytes)`` like ``_render_group``."""
+        from ..parallel.streaming import render_streaming
+
+        job = it.job
+        kwargs: Dict[str, Any] = dict(
+            seed=int(job.seed),
+            chunk_seconds=self.chunk_seconds,
+            with_metrics=bool(job.with_metrics),
+            pcm16_output=self.pcm16_output,
+            fast_filters=self.fast_filters,
+            device=self.device,
+        )
+        if it.prepared_ir is not None:
+            kwargs["external_ir"] = it.prepared_ir
+            kwargs["external_ir_rate"] = int(job.rate)  # already rate-matched
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            result = render_streaming(it.clip, int(job.rate), job.params, **kwargs)
+        out, metrics = result if job.with_metrics else (result, None)
+        streamed = (out[None], None if metrics is None else [metrics])
+        return (lambda: streamed), it.nbytes

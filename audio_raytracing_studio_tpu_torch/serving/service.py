@@ -466,8 +466,8 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--streaming-threshold-s", type=float, default=600.0,
-        help="clips longer than this belong to the bounded-memory streaming "
-             "renderer; until it is ported they are refused with 400",
+        help="clips longer than this render via the chunked streaming "
+             "path instead of one whole-signal batch",
     )
     ap.add_argument(
         "--chunk-seconds", type=float, default=30.0,

@@ -21,7 +21,10 @@ Drives the port's paths at full size and checks them:
   group) and its HTTP job API ``serving.service.RenderHTTPService``;
 - the product surfaces — ``app.api.process_audio_main_v41`` (the studio's one
   button), the 4-tab studio over its headless HTTP server, the visualizer's
-  device STFT, the A/B profiler, the analyzer UI and the ``compat`` façade.
+  device STFT, the A/B profiler, the analyzer UI and the ``compat`` façade;
+- long clips — ``parallel.streaming.render_streaming`` on a 30-minute clip
+  and the routes to it: ``cli.render --stream``, long jobs in
+  ``RenderService`` and its HTTP API.
 
 Phases, one line each:
 
@@ -84,8 +87,8 @@ Phases, one line each:
    sharing one external IR — into ``max_batch=16, max_wait_ms=100``, cold
    and again: every future resolves, the groups split by key, each result
    is within 2e-5 (PCM16 1 LSB, 0.01 LU) of a solo ``render`` on the card;
-   a mono external IR, an empty clip and a clip past
-   ``streaming_threshold_s`` are refused at ``submit`` (an unknown layout
+   a mono external IR and an empty clip are refused at ``submit``, a clip
+   past ``streaming_threshold_s`` at ``warm`` (an unknown layout
    name is no error: it falls back to the default layout, as in the
    reference); a cancelled queued job gives its bytes back.  7c: the HTTP
    API on 127.0.0.1 — four 60 s WAVs and a stereo IR uploaded; a params
@@ -129,11 +132,30 @@ Phases, one line each:
    and the startup marker (the line says which ran; every step that touches
    the card runs regardless).  ``[8 timing]``: each call's wall and its split
    (read, ``render``, clip + encode + write, player copy), the STFT's times,
-   the HTTP walls.
+   the HTTP walls;
+9. long clips: a 30-minute mono clip at 48 kHz (``tools/bench_long.py``'s:
+   5.1, room 200, seed 1, 30 s chunks, metrics on).  9a ``render_streaming``
+   fast, exact and exact + EQ (bass 1.6, treble 0.7) against the single-shot
+   ``render`` of the same clip (exact ≤ 1e-4, fast ≤ 1e-3, metrics ≤ 0.01
+   LU / dB), PCM16 on the card equal to ``wavio``'s, ``bench_long``'s three
+   realtime factors for fast and exact, the stage split of a render by CUDA
+   events and the card's busy share; 9b a 5-minute clip in 30 s and 7.3 s
+   chunks within 1e-5; 9c the exact-length EQ and air (Bluestein at m =
+   2^28) and cuFFT's own pair at the render's length against float64 cuFFT,
+   their times and the memory their plans hold beside the allocator; 9d a
+   90 s clip on the card against the CPU (≤ 2e-5, PCM16 1 LSB); 9e a
+   12-minute WAV through ``cli.render --stream`` (bytes equal to the direct
+   call's), one 12-minute job among 48 × 60 s jobs in ``RenderService``
+   (the long one a group of its own, bytes equal to the direct call's, the
+   short ones to their ``render_batch`` rows) and through the HTTP API;
+   9f the bank at the streaming shapes; 9g the peak allocated memory and
+   the memory beside the allocator of single-shot and streaming exact + EQ
+   renders at 30 and 60 min, Stereo and 5.1.  ``[9 timing]``.
 
 Development options (a run with either prints no result line):
-``--only 8`` runs phases 1, 2 and 8; ``--rehearse-cpu SECONDS`` walks phase
-8's control flow on the CPU at a short clip length.
+``--only 8`` or ``--only 9`` runs phases 1, 2 and that phase;
+``--rehearse-cpu SECONDS`` walks phases 8 and 9's control flow on the CPU at
+a short clip length.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -171,6 +193,12 @@ PEAK_F32_S = 67e12  # float32 outside the tensor cores, same source
 CLI_SECONDS = 60  # phases 6 and 8: the one clip (and phase 6's 44.1 kHz clip to convert)
 STFT_TOL = 1e-5  # device STFT power vs the CPU's and scipy's, as a share of the matrix's maximum
 STEM_SECONDS = (30, 45, 60)  # phase 6: the three length groups of the stems
+LONG_MINUTES = 30.0  # phase 9: tools/bench_long.py's clip
+STREAM_CHUNK_S = 30.0  # phase 9: its chunks
+STREAM_TOL = 1e-4  # exact streaming vs single-shot (tests/test_streaming.py:254, :299); 9c vs float64
+FAST_AIR_TOL = 1e-3  # fast streaming vs single-shot exact: the fast-air contract
+INVARIANCE_TOL = 1e-5  # two chunk sizes: the overlap-add is exact, float32 round-off only
+CARD_CPU_TOL = 2e-5  # a 90 s streaming render, card vs CPU
 
 
 class SmokeFailure(RuntimeError):
@@ -757,6 +785,29 @@ def busy_share(torch, fn) -> dict:
             "device_events": len(spans)}
 
 
+def outside_allocator(torch) -> int:
+    """Bytes in use on the card beside PyTorch's caching allocator (the cuFFT
+    plans' own tables, the context)."""
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    return total - free - torch.cuda.memory_reserved()
+
+
+def max_abs(np, torch, a, b) -> float:
+    """max |a − b| of two equal-shaped host arrays, a slice at a time (no
+    clip-sized temporaries), on the host's threads."""
+    check(a.shape == b.shape, f"shapes {a.shape} vs {b.shape}")
+    ta = torch.from_numpy(np.ascontiguousarray(a).reshape(-1))
+    tb = torch.from_numpy(np.ascontiguousarray(b).reshape(-1))
+    step = 1 << 25
+    worst = 0.0
+    for s in range(0, ta.numel(), step):
+        d = (ta[s:s + step].double() - tb[s:s + step].double()).abs().max().item()
+        check(d == d, "a NaN in a compared result")
+        worst = max(worst, d)
+    return worst
+
+
 def http_call(port: int, method: str, path: str, body=None, headers=None):
     """One request to the service on 127.0.0.1 → (status code, body bytes);
     an HTTP error status is returned, not raised."""
@@ -1079,17 +1130,12 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
                                   external_ir=ir if p.use_external_ir else None))
     order = rng.permutation(len(jobs))
 
-    def outside():
-        """Bytes in use on the card beside PyTorch's caching allocator."""
-        free, total = torch.cuda.mem_get_info()
-        return total - free - torch.cuda.memory_reserved()
-
     if on_card:
         # 7b's own plans and memory: start from an empty plan cache
         torch.backends.cuda.cufft_plan_cache.clear()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        outside_before = outside()
+        outside_before = outside_allocator(torch)
         pinned_before = torch.cuda.host_memory_stats()["allocated_bytes.current"]
     svc = RenderService(max_batch=16, max_wait_ms=100, max_queued=len(jobs), device=dev)
     try:
@@ -1149,8 +1195,8 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
     short = RenderService(max_batch=4, streaming_threshold_s=seconds / 4, device=dev,
                           start=False)
     try:
-        short.submit(RenderJob(clips[0], RATE, RenderParams()))
-        check(False, "7b: a job past streaming_threshold_s was accepted")
+        short.warm(RenderJob(clips[0], RATE, RenderParams()))
+        check(False, "7b: warm() took a job past streaming_threshold_s")
     except ValueError as e:
         check("streaming" in str(e), f"7b: refusal says {e}")
     # a cancelled queued job gives its bytes back
@@ -1183,7 +1229,7 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
     if on_card:
         mixed["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
         # what the card holds beside PyTorch's allocator: the cuFFT plans' tables
-        mixed["outside_allocator_mb"] = outside() / 1e6
+        mixed["outside_allocator_mb"] = outside_allocator(torch) / 1e6
         mixed["outside_allocator_before_mb"] = outside_before / 1e6
         mixed["pinned_before_mb"] = pinned_before / 1e6
     # every job against its solo render on the same device
@@ -1208,7 +1254,8 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
     print(f"[7b mixed] {len(jobs)} jobs from 8 threads, {len(keys)} keys in {len(buckets)} "
           f"length buckets -> batches {st['batch_sizes']}; each vs its solo render: max-abs "
           f"{worst[0]:.3e} (tol {SERVE_TOL}), PCM16 {worst[1]} LSB, lufs d {worst[2]:.2e} LU; "
-          f"refused at submit: mono IR, empty clip, clip past streaming_threshold_s; the "
+          f"refused at submit: mono IR, empty clip; warm() refuses a clip past "
+          f"streaming_threshold_s; the "
           f"cancelled job gave its bytes back; wall {wall:.2f} s cold (new cuFFT plans), "
           f"{warm_wall:.2f} s again", flush=True)
     if on_card:
@@ -1749,9 +1796,450 @@ def product_phase(np, torch, bank, work: str, seconds: float = CLI_SECONDS,
     return out
 
 
+def streaming_phase(np, torch, bank, work: str, minutes: float = LONG_MINUTES,
+                    device: str = "cuda") -> dict:
+    """Phase 9: one long clip through the chunked streaming renderer.  9a
+    streaming fast, exact and exact + EQ against the single-shot ``render``
+    of the same ``minutes`` clip (5.1, room 200, seed 1, 30 s chunks, metrics
+    on; ``tools.bench_long``'s setting and timings), PCM16 on the device
+    against ``wavio``'s; 9b chunk invariance; 9c the exact-length filters
+    against float64 cuFFT at the render's length; 9d the card against the
+    CPU; 9e ``cli.render --stream``, a routed ``RenderService`` job among 48
+    short ones and the HTTP API on a long clip; 9f the bank at every
+    streaming shape; 9g device memory of single-shot and streaming renders.
+    Every clip length scales with ``minutes`` (30 on the card; a short one
+    for the CPU rehearsal, where the card-only steps are left out).  Returns
+    the timings, the counted bank launches of the renders and the bank's
+    worst error against its plain version."""
+    from audio_raytracing_studio_tpu_torch import RenderParams
+    from audio_raytracing_studio_tpu_torch.cli import render as cli_render
+    from audio_raytracing_studio_tpu_torch.config import OUTPUT_CLIP
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.ops import filters, ir_synth
+    from audio_raytracing_studio_tpu_torch.parallel import sharding, streaming, streaming_eq
+    from audio_raytracing_studio_tpu_torch.serving import RenderJob, RenderService
+    from audio_raytracing_studio_tpu_torch.serving.service import RenderHTTPService
+    from audio_raytracing_studio_tpu_torch.tools import bench_long as bl
+    from audio_raytracing_studio_tpu_torch.utils import wavio
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    scale = minutes / LONG_MINUTES
+    n_long = int(minutes * 60 * RATE)
+    out = {"launches": 0, "bank_errs": [0.0, 0.0]}
+    timing = {"minutes": minutes, "chunk_s": STREAM_CHUNK_S, "walls_s": {}}
+    t_phase = [time.perf_counter()]
+
+    def lap(name):
+        """The host wall of the sub-phase that ends here."""
+        now = time.perf_counter()
+        timing["walls_s"][name] = now - t_phase[0]
+        t_phase[0] = now
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        """Run ``fn`` (renders only, never a bank check) and count its bank calls."""
+        before = bank.launch_count
+        result = fn()
+        out["launches"] += bank.launch_count - before
+        return result
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        result = counted(fn)
+        sync()
+        return result, time.perf_counter() - t0
+
+    def clear_plans():
+        if on_card:
+            torch.backends.cuda.cufft_plan_cache.clear()
+            torch.cuda.empty_cache()
+
+    def quantize(x):
+        return wavio.encode_pcm16(np.clip(x, -OUTPUT_CLIP, OUTPUT_CLIP))
+
+    def lsb(a, b):
+        return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+    stream_kw = dict(seed=bl.SEED, chunk_seconds=STREAM_CHUNK_S * scale, device=dev)
+    p = RenderParams(target_layout=bl.LAYOUT, room_size=bl.ROOM_SIZE)
+    p_eq = dataclasses.replace(p, bass_gain=1.6, treble_gain=0.7)
+    clip = bl.make_long_clip(minutes)
+    setup = pipeline.build_internal_setup(p, RATE, n_long)
+    len_out = setup.spec.len_out
+    timing["len_out"] = len_out
+    timing["ir_length"] = setup.ir_shape.length
+
+    # ---------------- 9a: streaming against single-shot ----------------
+    clear_plans()
+    singles = {}
+    for label, params in (("plain", p), ("eq", p_eq)):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        (ref, ref_m), wall = timed(lambda: pipeline.render(
+            clip, RATE, params, seed=bl.SEED, fast_filters=False, return_metrics=True,
+            device=dev))
+        check(ref.shape == (len_out, 6) and np.isfinite(ref).all(),
+              f"9a single-shot {label}: {ref.shape}")
+        singles[label] = (ref, ref_m)
+        timing[f"single_{label}_s"] = wall
+        if on_card:
+            timing[f"single_{label}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if on_card:
+        timing["single_outside_allocator_gb"] = outside_allocator(torch) / 1e9
+    clear_plans()
+    figures = {}
+    results = {}
+    for exact in (False, True):
+        mode = "exact" if exact else "fast"
+        if on_card:  # tools.bench_long: four renders, the PCM16 check among them
+            fig, res, res_m = counted(lambda: bl.bench_long(clip, exact=exact, device=dev))
+        else:
+            fig = None
+            res, res_m = counted(lambda: streaming.render_streaming(
+                clip, RATE, p, fast_filters=not exact, with_metrics=True, **stream_kw))
+        figures[mode] = fig
+        results[mode] = (res, res_m)
+        check(fig is None or fig["pcm16_bit_identical"],
+              f"9a {mode}: PCM16 on the device differs from wavio's")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    (res_eq, res_eq_m), wall = timed(lambda: streaming.render_streaming(
+        clip, RATE, p_eq, fast_filters=False, with_metrics=True, **stream_kw))
+    timing["stream_exact_eq_s"] = wall
+    if on_card:
+        timing["stream_exact_eq_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    results["exact_eq"] = (res_eq, res_eq_m)
+    q_eq, wall = timed(lambda: streaming.render_streaming(
+        clip, RATE, p_eq, fast_filters=False, pcm16_output=True, **stream_kw))
+    timing["stream_exact_eq_pcm16_s"] = wall
+    check(q_eq.dtype == np.int16 and np.array_equal(q_eq, quantize(res_eq)),
+          "9a exact + EQ: PCM16 on the device differs from wavio's")
+    del q_eq
+    errs = {}
+    for mode, single, tol in (("fast", "plain", FAST_AIR_TOL), ("exact", "plain", STREAM_TOL),
+                              ("exact_eq", "eq", STREAM_TOL)):
+        res, res_m = results[mode]
+        ref, ref_m = singles[single]
+        err = max_abs(np, torch, res, ref)
+        check(err <= tol, f"9a streaming {mode} vs single-shot: {err} > {tol}")
+        errs[mode] = {"max_abs": err, "metric_d": check_metrics(res_m, ref_m, f"9a {mode}")}
+    timing["vs_single_shot"] = errs
+    timing["bench_long"] = figures
+    print(f"[9a streaming] {minutes:g} min 5.1 room 200: len_out {len_out}, chunks of "
+          f"{STREAM_CHUNK_S * scale:g} s; vs single-shot exact: fast {errs['fast']['max_abs']:.3e} "
+          f"(tol {FAST_AIR_TOL}), exact {errs['exact']['max_abs']:.3e}, exact + EQ "
+          f"{errs['exact_eq']['max_abs']:.3e} (tol {STREAM_TOL}); metrics within "
+          f"{max(max(e['metric_d']) for e in errs.values()):.2e}; PCM16 on the device = wavio's",
+          flush=True)
+    exact_out = results["exact"][0]
+    del results, singles, res, ref
+
+    # stage split of one exact + EQ render and one fast render, by CUDA events
+    if on_card:
+        audio_nc = clip[:, None]
+        for mode, params, fast in (("fast", p, True), ("exact_eq", p_eq, False)):
+            events = {name: torch.cuda.Event(enable_timing=True)
+                      for name in ("start", "plan", "pass1", "filters", "pass2", "meter")}
+            events["start"].record()
+            plan = counted(lambda: streaming._plan(audio_nc, RATE, params, bl.SEED,
+                                                   STREAM_CHUNK_S, True, None, None, fast, dev))
+            events["plan"].record()
+            out_cn = streaming._render_on_device(audio_nc, plan, dev,
+                                                 stage=lambda name: events[name].record())
+            streaming._streaming_metrics(out_cn, RATE, len_out, plan.chunk, plan.n_chunks)
+            events["meter"].record()
+            torch.cuda.synchronize()
+            names = list(events)
+            timing[f"stages_{mode}_ms"] = {
+                b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
+            timing["n_chunks"] = plan.n_chunks
+            del out_cn
+        # the card's busy share over one compute-only exact + EQ render
+        timing["busy_exact_eq"] = busy_share(torch, lambda: counted(
+            lambda: streaming.render_streaming(clip, RATE, p_eq, fast_filters=False,
+                                               with_metrics=True, return_output=False,
+                                               **stream_kw)))
+
+    lap("9a")
+
+    # ---------------- 9b: chunk invariance ----------------
+    five = clip[: int(5 * 60 * RATE * scale)]
+    inv = {}
+    for fast in (True, False):
+        a = counted(lambda: streaming.render_streaming(
+            five, RATE, p, fast_filters=fast, **dict(stream_kw, chunk_seconds=30.0 * scale)))
+        b = counted(lambda: streaming.render_streaming(
+            five, RATE, p, fast_filters=fast, **dict(stream_kw, chunk_seconds=7.3 * scale)))
+        inv["fast" if fast else "exact"] = max_abs(np, torch, a, b)
+        check(inv["fast" if fast else "exact"] <= INVARIANCE_TOL,
+              f"9b chunk invariance {inv} > {INVARIANCE_TOL}")
+    timing["chunk_invariance"] = inv
+    print(f"[9b invariance] {five.shape[0] / RATE:g} s, chunks {30.0 * scale:g} s vs "
+          f"{7.3 * scale:g} s: fast {inv['fast']:.3e}, exact {inv['exact']:.3e} "
+          f"(tol {INVARIANCE_TOL})", flush=True)
+
+    lap("9b")
+
+    # ---------------- 9c: the exact-length filters at len_out ----------------
+    if on_card:
+        n0 = len_out
+        x = torch.from_numpy(np.ascontiguousarray(exact_out[:, :2].T)).to(dev)
+        peak = x.abs().max().item()
+        bg = torch.tensor([1.6], device=dev)
+        tg = torch.tensor([0.7], device=dev)
+        fac = torch.tensor([p.air_absorption], device=dev)
+        filt = {}
+        for name, stream_fn, gain in (
+            ("shelf_eq", lambda: streaming_eq.shelf_eq_streaming(x, n0, RATE, bg, tg),
+             lambda: filters.shelf_eq_gain(n0, RATE, bg, tg)[0]),
+            ("air", lambda: streaming_eq.air_absorption_streaming(x, n0, RATE, fac),
+             lambda: filters.air_absorption_gain(n0, RATE, fac)[0]),
+        ):
+            clear_plans()
+            base = outside_allocator(torch)
+            g = gain()
+            ref = torch.fft.irfft(torch.fft.rfft(x.double(), n=n0) * g.double(), n=n0)
+            outside64 = outside_allocator(torch) - base
+            clear_plans()
+            base = outside_allocator(torch)
+            torch.cuda.reset_peak_memory_stats()
+            alloc0 = torch.cuda.memory_allocated()
+            ours = stream_fn()
+            ours_peak = torch.cuda.max_memory_allocated() - alloc0
+            ours_outside = outside_allocator(torch) - base
+            err_ours = (ours.double() - ref).abs().max().item() / peak
+            del ours
+            base = outside_allocator(torch)
+            spec = torch.fft.rfft(x, n=n0)
+            one_plan = outside_allocator(torch) - base
+            pair = torch.fft.irfft(spec * g, n=n0)
+            pair_outside = outside_allocator(torch) - base
+            err_pair = (pair.double() - ref).abs().max().item() / peak
+            del spec, pair, ref
+            ours_ms = cuda_ms(torch, stream_fn, 3)
+            pair_ms = cuda_ms(torch, lambda: torch.fft.irfft(torch.fft.rfft(x, n=n0) * g, n=n0), 3)
+            check(err_ours <= STREAM_TOL, f"9c {name}: Bluestein vs float64 {err_ours}")
+            filt[name] = {"bluestein_rel_err": err_ours, "cufft_pair_rel_err": err_pair,
+                          "bluestein_ms": ours_ms, "cufft_pair_ms": pair_ms,
+                          "bluestein_peak_alloc_gb": ours_peak / 1e9,
+                          "bluestein_outside_allocator_gb": ours_outside / 1e9,
+                          "cufft_rfft_plan_outside_allocator_gb": one_plan / 1e9,
+                          "cufft_pair_plans_outside_allocator_gb": pair_outside / 1e9,
+                          "float64_pair_plans_outside_allocator_gb": outside64 / 1e9}
+        clear_plans()
+        timing["exact_length_filters"] = {"n0": n0, "m": streaming_eq.bluestein_length(n0), **filt}
+        print(f"[9c exact length] n0 {n0} (m {streaming_eq.bluestein_length(n0)}): max-abs vs "
+              f"float64 cuFFT / signal max: EQ Bluestein {filt['shelf_eq']['bluestein_rel_err']:.2e}"
+              f" (cuFFT pair {filt['shelf_eq']['cufft_pair_rel_err']:.2e}), air "
+              f"{filt['air']['bluestein_rel_err']:.2e} ({filt['air']['cufft_pair_rel_err']:.2e}); "
+              f"one float32 exact-length plan holds "
+              f"{filt['shelf_eq']['cufft_rfft_plan_outside_allocator_gb']:.2f} GB outside the "
+              f"allocator, the Bluestein's plans "
+              f"{filt['shelf_eq']['bluestein_outside_allocator_gb']:.2f} GB", flush=True)
+        del x
+    del exact_out
+
+    lap("9c")
+
+    # ---------------- 9d: the card against the CPU ----------------
+    if on_card:
+        short = clip[: int(90 * RATE * scale)]
+        card_cpu = {}
+        for mode, params, fast in (("fast", p, True), ("exact_eq", p_eq, False)):
+            got = {d: counted(lambda: streaming.render_streaming(
+                short, RATE, params, fast_filters=fast,
+                **dict(stream_kw, chunk_seconds=20.0 * scale, device=d))) for d in ("cuda", "cpu")}
+            err = max_abs(np, torch, got["cuda"], got["cpu"])
+            bits = lsb(quantize(got["cuda"]), quantize(got["cpu"]))
+            check(err <= CARD_CPU_TOL and bits <= 1,
+                  f"9d {mode}: card vs CPU {err} (tol {CARD_CPU_TOL}), {bits} LSB")
+            card_cpu[mode] = {"max_abs": err, "pcm16_lsb": bits}
+        timing["card_vs_cpu"] = card_cpu
+        print(f"[9d card vs CPU] {short.shape[0] / RATE:g} s, 20 s chunks: fast "
+              f"{card_cpu['fast']['max_abs']:.3e}, exact + EQ {card_cpu['exact_eq']['max_abs']:.3e} "
+              f"(tol {CARD_CPU_TOL}); PCM16 within "
+              f"{max(c['pcm16_lsb'] for c in card_cpu.values())} LSB", flush=True)
+
+    lap("9d")
+
+    # ---------------- 9e: the routes ----------------
+    long_s = 12 * 60 * scale
+    threshold = 600.0 * scale
+    twelve = clip[: int(long_s * RATE)]
+    wav_in = os.path.join(work, "long.wav")
+    wavio.write(wav_in, twelve, RATE)
+    decoded, _ = wavio.read(wav_in)
+    direct_q, direct_m = counted(lambda: streaming.render_streaming(
+        decoded, RATE, p, fast_filters=False, with_metrics=True, pcm16_output=True, **stream_kw))
+    direct_bytes = io.BytesIO()
+    wavio.write(direct_bytes, direct_q, RATE)
+    direct_bytes = direct_bytes.getvalue()
+    routes = {"clip_s": long_s, "wav_mb": os.path.getsize(wav_in) / 1e6}
+    # cli.render --stream
+    wav_out = os.path.join(work, "long_out.wav")
+    stdout, routes["cli_s"] = counted(lambda: run_cli(cli_render.main, [
+        wav_in, wav_out, "--stream", "--metrics", "--json", "--layout", bl.LAYOUT,
+        "--room-size", bl.ROOM_SIZE, "--seed", bl.SEED, "--chunk-seconds",
+        STREAM_CHUNK_S * scale, "--device", device]))
+    with open(wav_out, "rb") as f:
+        check(f.read() == direct_bytes, "9e: cli.render --stream wrote other bytes than the "
+              "direct render_streaming")
+    check(json.loads(stdout)[0]["metrics"] == direct_m,
+          f"9e: the CLI's metrics {stdout} vs {direct_m}")
+    # RenderService: the long job among 48 short ones, submitted at once
+    from audio_raytracing_studio_tpu_torch.tools.profile_render import bench_clips
+
+    shorts = bench_clips(BATCH, DURATION_S * scale)
+    short_p = RenderParams(target_layout="Stereo")
+    n_short = shorts.shape[1]
+    svc = RenderService(max_batch=BATCH, max_wait_ms=2000, pcm16_output=True,
+                        streaming_threshold_s=threshold, chunk_seconds=STREAM_CHUNK_S * scale,
+                        max_queued=2 * BATCH, device=dev)
+    before = bank.launch_count  # the worker renders from the first submit on
+    try:
+        t0 = time.perf_counter()
+        futs = [svc.submit(RenderJob(twelve, RATE, p, seed=bl.SEED, with_metrics=True))]
+        futs += [svc.submit(RenderJob(shorts[i], RATE, short_p, seed=500 + i, with_metrics=True))
+                 for i in range(BATCH)]
+        served = wait_all(futs, timeout=600)
+        routes["service_s"] = time.perf_counter() - t0
+        st = svc.stats()
+    finally:
+        svc.stop()
+    out["launches"] += bank.launch_count - before
+    check(sorted(st["batch_sizes"]) == [1, BATCH] and st["jobs_failed"] == 0
+          and st["inflight_input_bytes"] == 0,
+          f"9e service: batches {st['batch_sizes']}, {st['jobs_failed']} failed, "
+          f"{st['inflight_input_bytes']} bytes in flight")
+    direct_long = counted(lambda: streaming.render_streaming(
+        twelve, RATE, p, fast_filters=False, with_metrics=True, pcm16_output=True, **stream_kw))
+    check(np.array_equal(served[0].audio, direct_long[0]) and served[0].metrics == direct_long[1],
+          "9e service: the routed long job differs from the direct render_streaming")
+    bucket = sharding.bucket_length(n_short, RATE)
+    padded = np.zeros((BATCH, bucket), np.float32)
+    padded[:, :n_short] = shorts
+    rows, rows_m = counted(lambda: sharding.render_batch(
+        padded, RATE, short_p, seeds=[500 + i for i in range(BATCH)], with_metrics=True,
+        clip_lengths=[n_short] * BATCH, pcm16_output=True, device=dev))
+    real = n_short + rows.shape[1] - bucket
+    for i, r in enumerate(served[1:]):
+        check(np.array_equal(r.audio, rows[i, :real]) and r.metrics == rows_m[i],
+              f"9e service: short job {i} differs from its direct render_batch row")
+    routes["service_batches"] = st["batch_sizes"]
+    del served, rows, direct_long
+    # the HTTP job API
+    http = RenderHTTPService(
+        RenderService(max_batch=4, max_wait_ms=20, pcm16_output=True,
+                      streaming_threshold_s=threshold, chunk_seconds=STREAM_CHUNK_S * scale,
+                      device=dev),
+        host="127.0.0.1", port=0).start()
+    before = bank.launch_count
+    try:
+        t0 = time.perf_counter()
+        with open(wav_in, "rb") as f:
+            code, body = http_call(http.port, "POST", "/v1/upload", f.read(),
+                                   {"X-Filename": "long.wav"})
+        check(code == 200, f"9e http: upload answered {code}")
+        code, body = http_call(http.port, "POST", "/v1/jobs", json.dumps(
+            {"input": json.loads(body)["path"], "params": p.to_preset_dict(),
+             "seed": bl.SEED}).encode())
+        check(code == 202, f"9e http: POST /v1/jobs answered {code}: {body[:200]}")
+        job_id = json.loads(body)["job_id"]
+        deadline = time.monotonic() + 600
+        while True:
+            status = json.loads(http_call(http.port, "GET", f"/v1/jobs/{job_id}")[1])
+            if status["status"] != "queued":
+                break
+            check(time.monotonic() < deadline, "9e http: the long job is still queued")
+            time.sleep(0.05)
+        check(status["status"] == "done", f"9e http: the long job ended as {status}")
+        code, wav = http_call(http.port, "GET", f"/v1/jobs/{job_id}/result")
+        routes["http_s"] = time.perf_counter() - t0
+        stats = json.loads(http_call(http.port, "GET", "/v1/stats")[1])
+    finally:
+        http.stop()
+    out["launches"] += bank.launch_count - before
+    check(stats["batch_sizes"] == [1] and stats["jobs_done"] == 1,
+          f"9e http: batches {stats['batch_sizes']}, {stats['jobs_done']} done")
+    check(code == 200 and wav == direct_bytes,
+          "9e http: the served WAV differs from the direct render_streaming's")
+    timing["routes"] = routes
+    print(f"[9e routes] {long_s:g} s clip ({routes['wav_mb']:.1f} MB WAV): cli.render --stream "
+          f"{routes['cli_s']:.2f} s, bytes = the direct call's; RenderService batches "
+          f"{st['batch_sizes']} (the long job routed, 48 short jobs = their render_batch rows) in "
+          f"{routes['service_s']:.2f} s; HTTP upload + job + result {routes['http_s']:.2f} s, "
+          f"bytes = the direct call's", flush=True)
+
+    lap("9e")
+
+    # ---------------- 9f: the bank at the streaming shapes ----------------
+    if on_card:
+        for label, shape_setup, seeds in (
+            ("streaming room 200 B=1", setup, [bl.SEED]),
+            ("9e short jobs B=48", pipeline.build_internal_setup(short_p, RATE, n_short),
+             [500 + i for i in range(BATCH)]),
+        ):
+            errs = hold_bank(np, torch, bank, label, shape_setup.ir_shape,
+                             shape_setup.ir_scalars, seeds)
+            out["bank_errs"] = [max(a, b) for a, b in zip(out["bank_errs"], errs)]
+        print(f"[9f bank] B=1 x {setup.ir_shape.length} (every streaming render) and the 9e "
+              f"group: kernel vs plain max-abs early {out['bank_errs'][0]:.3e} late "
+              f"{out['bank_errs'][1]:.3e} (tol {BANK_TOL})", flush=True)
+
+    lap("9f")
+
+    # ---------------- 9g: device memory, single-shot against streaming ----------------
+    if on_card:
+        memory = {}
+        for mins in (minutes, 2 * minutes):
+            x = clip if mins == minutes else np.concatenate([clip, clip])
+            for layout in ("Stereo", bl.LAYOUT):
+                params = dataclasses.replace(p_eq, target_layout=layout)
+                for path in ("single", "streaming"):
+                    clear_plans()
+                    base = outside_allocator(torch)
+                    torch.cuda.reset_peak_memory_stats()
+                    alloc0 = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    if path == "single":
+                        s = pipeline.build_internal_setup(params, RATE, x.shape[0])
+                        audio_t = torch.from_numpy(x).to(dev).expand(1, 2, -1)
+                        mix = pipeline.MixScalars.stack([s.mix_scalars], dev)
+                        seeds = ir_synth.to_device(ir_synth.seeds_to_int32([bl.SEED]), dev)
+                        early, late = counted(lambda: bank.fused_rir_bank(
+                            seeds, s.ir_shape, s.ir_scalars))
+                        res = pipeline.internal_graph_with_irs(audio_t, early, late, mix, s.spec)
+                    else:
+                        plan = counted(lambda: streaming._plan(
+                            x[:, None], RATE, params, bl.SEED, STREAM_CHUNK_S * scale, True,
+                            None, None, False, dev))
+                        res = streaming._render_on_device(x[:, None], plan, dev)
+                    torch.cuda.synchronize()
+                    memory[f"{path}_{mins:g}min_{layout}"] = {
+                        "peak_alloc_gb": (torch.cuda.max_memory_allocated() - alloc0) / 1e9,
+                        "outside_allocator_gb": (outside_allocator(torch) - base) / 1e9,
+                        "wall_s": time.perf_counter() - t0,
+                    }
+                    del res
+        clear_plans()
+        timing["memory"] = memory
+        print("[9g memory] peak allocated / outside the allocator, GB, exact + EQ: " + ", ".join(
+            f"{k} {v['peak_alloc_gb']:.2f} / {v['outside_allocator_gb']:.2f}"
+            for k, v in memory.items()), flush=True)
+    lap("9g")
+    out["timing"] = timing
+    return out
+
+
 def rehearse_cpu(seconds: float) -> int:
-    """``--rehearse-cpu SECONDS``: phase 8's control flow on the CPU at a
-    short clip length, with the kernels' plain versions.  It measures nothing
+    """``--rehearse-cpu SECONDS``: phases 8 and 9's control flow on the CPU at
+    a short clip length (phase 9's 30-minute clip becomes SECONDS long, every
+    other length in proportion), with the kernels' plain versions.  It measures nothing
     and prints no result line; it exists to find wrong paths, shapes and
     names before a run on the card."""
     import numpy as np
@@ -1763,9 +2251,11 @@ def rehearse_cpu(seconds: float) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_product_")
     try:
         product = product_phase(np, torch, bank, work, seconds=seconds, device="cpu")
+        print("[8 rehearsal on the CPU: no device number] " + json.dumps(product["timing"]))
+        long_clips = streaming_phase(np, torch, bank, work, minutes=seconds / 60.0, device="cpu")
+        print("[9 rehearsal on the CPU: no device number] " + json.dumps(long_clips["timing"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print("[8 rehearsal on the CPU: no device number] " + json.dumps(product["timing"]))
     return 0
 
 
@@ -1776,10 +2266,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU; "
                                  "with no arguments every phase runs and the result lines print.")
-    ap.add_argument("--only", choices=["8"], default=None,
+    ap.add_argument("--only", choices=["8", "9"], default=None,
                     help="development: phases 1, 2 and this one; prints no result line")
     ap.add_argument("--rehearse-cpu", type=float, default=None, metavar="SECONDS",
-                    help="development: phase 8's control flow on the CPU at this clip length")
+                    help="development: phases 8 and 9's control flow on the CPU at this "
+                         "clip length")
     args = ap.parse_args(argv)
     if args.rehearse_cpu is not None:
         return rehearse_cpu(args.rehearse_cpu)
@@ -1834,9 +2325,23 @@ def main(argv=None) -> int:
               flush=True)
         return result
 
-    if args.only == "8":
-        product()
-        print("chip_smoke: --only 8 ran phases 1, 2 and 8; a partial run prints no result line")
+    def long_clips():
+        """Phase 9 in a temporary directory, its bank calls counted from 0."""
+        bank.launch_count = 0
+        work = tempfile.mkdtemp(prefix="chip_smoke_streaming_")
+        try:
+            result = streaming_phase(np, torch, bank, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print("[9 timing] " + json.dumps({"card": card, "nvidia_smi": smi,
+                                          "launches": result["launches"], **result["timing"]}),
+              flush=True)
+        return result
+
+    if args.only is not None:
+        {"8": product, "9": long_clips}[args.only]()
+        print(f"chip_smoke: --only {args.only} ran phases 1, 2 and {args.only}; a partial run "
+              "prints no result line")
         return 0
 
     # --- 3. bank check: kernel vs plain on the card ---
@@ -2074,6 +2579,12 @@ def main(argv=None) -> int:
     main_launches += result["launches"]
     bank_err = max(bank_err, *result["bank_errs"])
 
+    # --- 9. long clips: the streaming renderer, its routes, its memory ---
+    torch.cuda.empty_cache()
+    stream = long_clips()
+    main_launches += stream["launches"]
+    bank_err = max(bank_err, *stream["bank_errs"])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -2084,7 +2595,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
-        "launches": main_launches,  # phases 4, 4c, 6, 7 and 8
+        "launches": main_launches,  # phases 4, 4c, 6, 7, 8 and 9
         "max_abs_err": bank_err,
         "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],

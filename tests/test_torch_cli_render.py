@@ -150,12 +150,41 @@ def test_error_exit_codes_match_jax(files, monkeypatch, capsys, case):
     assert not (files / "o.wav").exists()
 
 
-def test_stream_not_ported(files, monkeypatch, capsys):
-    rc, cap = run(tcli.main, files, ["in.wav", "s.wav", "--stream", "--device", "cpu"], "",
-                  monkeypatch, capsys)
-    assert rc == 2
-    assert "--stream" in cap.err and "not ported" in cap.err
-    assert not (files / "s.wav").exists()
+def test_stream_matches_jax_and_the_direct_call(files, monkeypatch, capsys, record_property):
+    """``--stream`` renders with the exact filters and PCM16 quantized on the
+    device: the file equals ``wavio.write`` of the direct
+    ``render_streaming`` call bit for bit, its ``--json`` metrics equal that
+    call's, and the JAX CLI's file is within 1 LSB (air and EQ off, so that
+    the JAX side compiles no Bluestein transform)."""
+    from audio_raytracing_studio_tpu_torch.parallel.streaming import render_streaming
+
+    argv = ["in_stereo.wav", "{out}", "--stream", "--chunk-seconds", "0.2", "--seed", "3",
+            "--air-absorption", "0", "--layout", "5.1 (Standard)"]
+    rc_t, cap_t = run(tcli.main, files, argv + ["--json", "--device", "cpu"], "s_port.wav",
+                      monkeypatch, capsys)
+    rc_j, cap_j = run(jcli.main, files, argv, "s_jax.wav", monkeypatch, capsys)
+    assert rc_t == rc_j == 0, (cap_t.err, cap_j.err)
+    (got, _), (want, _) = pcm(files / "s_port.wav"), pcm(files / "s_jax.wav")
+    lsb = int(np.abs(got - want).max())
+    record_property("pcm16_lsb_vs_jax", lsb)
+    assert got.shape == want.shape and lsb <= 1
+    audio, rate = wavio.read(files / "in_stereo.wav")
+    p = RenderParams(air_absorption=0.0, target_layout="5.1 (Standard)")
+    direct, metrics = render_streaming(audio, rate, p, seed=3, chunk_seconds=0.2,
+                                       with_metrics=True, pcm16_output=True,
+                                       fast_filters=False, device="cpu")
+    wavio.write(files / "s_direct.wav", direct, rate)
+    assert (files / "s_port.wav").read_bytes() == (files / "s_direct.wav").read_bytes()
+    assert json.loads(cap_t.out) == [{"output": "s_port.wav", "metrics": metrics}]
+
+
+def test_stream_plus_sweep_exits_2_as_in_jax(files, monkeypatch, capsys):
+    argv = ["in.wav", "x{i}.wav", "--stream", "--sweep", "diffusion=0.2,0.8"]
+    rc_t, cap_t = run(tcli.main, files, argv + ["--device", "cpu"], "", monkeypatch, capsys)
+    rc_j, cap_j = run(jcli.main, files, argv, "", monkeypatch, capsys)
+    assert rc_t == rc_j == 2
+    assert cap_t.err == cap_j.err and "--stream" in cap_t.err
+    assert not (files / "x0.wav").exists()
 
 
 def test_compressed_output_not_supported(files, monkeypatch, capsys):

@@ -6,8 +6,9 @@ and ``resample_poly`` on the card against the CPU at 60 s; the serving
 batcher's pipelined groups (one CUDA stream each, page-locked staging)
 against direct ``render_batch`` calls, bit for bit; the visualizer's device
 STFT against scipy at 60 s, ``process_audio_main_v41`` on the card against
-the same call on the CPU, and the ``compat`` chain at 60 s against its
-float64 ``"oracle"`` arms.
+the same call on the CPU, the ``compat`` chain at 60 s against its
+float64 ``"oracle"`` arms; the streaming renderer at 5 minutes against the
+single-shot render, and its exact-length filters against float64 cuFFT.
 
 Marked ``cuda``; each test skips (with a reason) where no card is present,
 as on a CPU-only machine.  This file imports no JAX (the oracle is NumPy and
@@ -590,3 +591,79 @@ def test_compat_chain_on_card_matches_oracle_at_60s(cuda):
         assert a.shape == b.shape
         assert float(np.abs(a.astype(np.float64) - b).max()) <= ORACLE_TOL
     assert_metrics_close(got[5], want[5])
+
+
+def five_minute_clip(rate=48000):
+    t = np.arange(5 * 60 * rate) / rate
+    return (0.25 * np.sin(2 * np.pi * 220.0 * t)
+            + 0.1 * np.sin(2 * np.pi * 3.1 * t) * np.sin(2 * np.pi * 880.0 * t)).astype(np.float32)
+
+
+@pytest.mark.parametrize("fast, eq, tol", [
+    (False, False, 1e-4),  # the JAX test's bound (tests/test_streaming.py:254)
+    (False, True, 1e-4),
+    (True, False, 1e-3),  # fast against exact: the fast-air contract
+])
+def test_streaming_on_card_matches_single_shot_at_5min(cuda, fast, eq, tol):
+    """``render_streaming`` on the card (30 s chunks, the bank at B=1) against
+    the single-shot exact ``render`` of the same 5-minute clip, metrics
+    included, and PCM16 on the card equal to ``wavio``'s."""
+    from audio_raytracing_studio_tpu_torch.config import OUTPUT_CLIP
+    from audio_raytracing_studio_tpu_torch.parallel.streaming import render_streaming
+    from audio_raytracing_studio_tpu_torch.utils import wavio
+
+    x = five_minute_clip()
+    p = RenderParams(target_layout="5.1 (Standard)", room_size=200.0,
+                     bass_gain=1.6 if eq else 1.0, treble_gain=0.7 if eq else 1.0)
+    before = bank.launch_count
+    out, m = render_streaming(x, 48000, p, seed=1, with_metrics=True, fast_filters=fast)
+    q = render_streaming(x, 48000, p, seed=1, pcm16_output=True, fast_filters=fast)
+    assert bank.launch_count == before + 2  # the CUDA bank, once per render
+    ref, ref_m = pipeline.render(x, 48000, p, seed=1, return_metrics=True, device=cuda)
+    assert out.shape == ref.shape and np.abs(out - ref).max() <= tol
+    assert abs(m["lufs"] - ref_m["lufs"]) <= LU_TOL
+    for k in ("true_peak_dbfs", "rms_dbfs"):
+        assert abs(m[k] - ref_m[k]) <= DB_TOL
+    assert np.array_equal(q, wavio.encode_pcm16(np.clip(out, -OUTPUT_CLIP, OUTPUT_CLIP)))
+
+
+@pytest.mark.parametrize("n0", [14_400_911, 1 << 24])
+def test_exact_length_filters_on_card_match_float64(cuda, n0):
+    """The streaming EQ and air filters (Bluestein at m = 2^k) on the card
+    against the same circular filters in float64 cuFFT: ≤ 1e-5 of the
+    signal's maximum; positions past n0 zero."""
+    from audio_raytracing_studio_tpu_torch.ops import filters
+    from audio_raytracing_studio_tpu_torch.parallel import streaming_eq
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.zeros((3, n0 + 1000), device=cuda)
+    x[:, :n0] = torch.randn((3, n0), device=cuda, generator=g)
+    peak = x.abs().max().item()
+    fac = torch.tensor([0.6], device=cuda)
+    bg, tg = torch.tensor([1.6], device=cuda), torch.tensor([0.7], device=cuda)
+    for got, gain in (
+        (streaming_eq.shelf_eq_streaming(x, n0, 48000, bg, tg),
+         filters.shelf_eq_gain(n0, 48000, bg, tg)[0]),
+        (streaming_eq.air_absorption_streaming(x, n0, 48000, fac),
+         filters.air_absorption_gain(n0, 48000, fac)[0]),
+    ):
+        ref = torch.fft.irfft(torch.fft.rfft(x[:, :n0].double(), n=n0) * gain.double(), n=n0)
+        assert (got[:, :n0].double() - ref).abs().max().item() <= 1e-5 * peak
+        assert not got[:, n0:].any()
+    torch.backends.cuda.cufft_plan_cache.clear()
+
+
+@pytest.mark.parametrize("n, rate", [(2_951_999, 48000), (3_155_898, 44100), (86_490_503, 48000)])
+def test_gain_curves_on_card_equal_numpy_bit_for_bit(cuda, n, rate):
+    """The filter curves built on the card in float64 carry the same bits as
+    ``np.fft.rfftfreq``'s on the host."""
+    from audio_raytracing_studio_tpu_torch import config
+    from audio_raytracing_studio_tpu_torch.ops import filters
+
+    freqs = np.fft.rfftfreq(n, d=1.0 / rate)
+    start = config.AIR_ABSORPTION_START_HZ
+    ramp = np.where(freqs >= start, np.clip((freqs - start) / (freqs[-1] - start), 0.0, 1.0), 0.0)
+    bass, treble = filters._shelf_masks(n, rate, cuda)
+    assert np.array_equal(filters._air_ramp(n, rate, cuda).cpu().numpy(), ramp.astype(np.float32))
+    assert np.array_equal(bass.cpu().numpy(), (freqs > 1e-6) & (freqs <= config.EQ_BASS_CUTOFF_HZ))
+    assert np.array_equal(treble.cpu().numpy(), freqs >= config.EQ_TREBLE_CUTOFF_HZ)

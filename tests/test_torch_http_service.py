@@ -390,15 +390,50 @@ def test_overloaded_and_stopped_service_answer_503():
             http.stop()
 
 
-def test_long_upload_is_refused_with_400():
-    svc = RenderService(max_batch=2, streaming_threshold_s=0.2, device="cpu", start=False)
-    http = RenderHTTPService(svc, host="127.0.0.1", port=0).start()
-    try:
-        code, err = post_job(http, {"input": upload(http, 0, seconds=0.3), "params": PARAMS})
-        assert code == 400 and "streaming renderer" in err["error"]
-        assert call(http, "GET", "/v1/stats")[1]["jobs_known"] == 0
-    finally:
-        http.stop()
+def test_long_upload_is_served_by_the_streaming_renderer(record_property):
+    """Past ``streaming_threshold_s`` the job renders through the streaming
+    renderer in both services: the same answers, WAVs within 1 LSB, and the
+    port's WAV equal to ``wavio.write`` of its direct ``render_streaming``."""
+    from audio_raytracing_studio_tpu_torch.parallel.streaming import render_streaming
+
+    params = dict(PARAMS, air_absorption=0.0)  # no exact-air transform to compile on the JAX side
+    answers = {}
+    for name, make in (
+        ("jax", lambda: JaxHTTPService(
+            JaxService(max_batch=2, max_wait_ms=20, streaming_threshold_s=0.2,
+                       chunk_seconds=0.25),
+            host="127.0.0.1", port=0)),
+        ("port", lambda: RenderHTTPService(
+            RenderService(max_batch=2, max_wait_ms=20, streaming_threshold_s=0.2,
+                          chunk_seconds=0.25, pcm16_output=True, device="cpu"),
+            host="127.0.0.1", port=0)),
+    ):
+        http = make().start()
+        try:
+            path = upload(http, 3, seconds=0.3)
+            code, job = post_job(http, {"input": path, "params": params, "seed": 2})
+            status = poll_done(http, job["job_id"])
+            _, wav = call(http, "GET", f"/v1/jobs/{job['job_id']}/result")
+            stats = call(http, "GET", "/v1/stats")[1]
+            answers[name] = dict(code=code, status=status, wav=wav, stats=stats,
+                                 upload=wavio.read(path))
+        finally:
+            http.stop()
+    j, p = answers["jax"], answers["port"]
+    assert j["code"] == p["code"] == 202
+    assert j["status"]["status"] == p["status"]["status"] == "done", (j["status"], p["status"])
+    assert j["stats"]["batch_sizes"] == p["stats"]["batch_sizes"] == [1]
+    for k in ("rate", "samples", "channels"):
+        assert j["status"][k] == p["status"][k], k
+    a, _ = wavio.read(io.BytesIO(j["wav"]))
+    b, _ = wavio.read(io.BytesIO(p["wav"]))
+    gap = float(np.abs(a - b).max())
+    record_property("port_vs_jax_streamed_wav_gap", gap)
+    assert a.shape == b.shape and gap <= 1.0 / 32768 + 2e-5
+    audio, rate = p["upload"]
+    direct = render_streaming(audio, rate, RenderParams(**params), seed=2, chunk_seconds=0.25,
+                              pcm16_output=True, fast_filters=False, device="cpu")
+    assert p["wav"] == wav_bytes(direct, rate)
 
 
 # ---------------------------------------------------------------- retention

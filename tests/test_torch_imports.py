@@ -35,7 +35,9 @@ def test_every_port_module_is_listed():
                      "serving.batcher", "serving.service", "utils.uploads", "utils.httpbase",
                      "oracle.dsp", "oracle.loudness", "analysis.visualize",
                      "analysis.profiler", "app.marker", "app.api", "app._gradio_headless",
-                     "app.server", "app.studio", "app.analyzer_ui", "__main__", "compat"):
+                     "app.server", "app.studio", "app.analyzer_ui", "__main__", "compat",
+                     "parallel.streaming", "parallel.streaming_eq", "tools.bench_long",
+                     "tools.profile_render"):
         assert f"{port.__name__}.{expected}" in names
 
 

@@ -432,23 +432,82 @@ def test_invalid_jobs_fail_fast_at_submit(job, match):
     svc.stop()
 
 
-def test_long_job_is_refused_at_submit_not_rendered(spy):
-    """Past ``streaming_threshold_s`` a job belongs to the streaming
-    renderer; until that is ported it fails at submit and at warm, and
-    never renders single-shot."""
-    svc = service(max_batch=4, streaming_threshold_s=0.5, chunk_seconds=0.25, start=False)
+@pytest.mark.parametrize("external", [False, True], ids=["internal", "external-ir"])
+def test_long_jobs_route_to_streaming(spy, external, record_property):
+    """Past ``streaming_threshold_s`` a job is a singleton group rendered by
+    ``render_streaming`` (never ``render_batch``): the same audio and metrics
+    as the direct call, bit for bit, and within float round-off of the JAX
+    service's routed job (``tests/test_serving.py``'s routing case).  Its
+    bytes are counted once and given back once."""
+    from audio_raytracing_studio_tpu_torch.parallel.streaming import render_streaming
+
+    clip = make_clip(4, seconds=0.8)
+    # exact filters, air off: the JAX side compiles no Bluestein transform
+    kw = dict(target_layout="Stereo", room_size=50.0, air_absorption=0.0)
+    ir = (np.random.default_rng(8).standard_normal((300, 2)) * 0.2).astype(np.float32)
+    if external:
+        kw = dict(use_external_ir=True, target_layout="Stereo", dry_wet=0.6)
+    p = RenderParams(**kw)
+    job = RenderJob(clip, RATE, p, seed=6, with_metrics=True,
+                    external_ir=ir if external else None, external_ir_rate=22050)
+    svc = service(max_batch=4, max_wait_ms=20, streaming_threshold_s=0.5, chunk_seconds=0.25)
+    try:
+        res = svc.render(job, timeout=300)
+        stats = svc.stats()
+    finally:
+        svc.stop()
+    assert spy == [] and stats["batch_sizes"] == [1] and stats["jobs_done"] == 1
+    assert stats["dispatched_input_bytes_total"] == clip.nbytes + (
+        pipeline.prepare_external_ir(ir, 22050, RATE).numpy().nbytes if external else 0)
+    assert stats["inflight_input_bytes"] == 0
+    assert stats["fetched_result_bytes_total"] == res.audio.nbytes
+    assert stats["retained_result_bytes"] == res.audio.nbytes and stats["retained_results"] == 1
+    extra = dict(external_ir=ir, external_ir_rate=22050) if external else {}
+    expect, expect_m = render_streaming(clip, RATE, p, seed=6, chunk_seconds=0.25,
+                                        with_metrics=True, fast_filters=False, device="cpu",
+                                        **extra)
+    assert res.audio.dtype == np.float32 and np.array_equal(res.audio, expect)
+    assert res.metrics == expect_m
+    if external:
+        return
+    jsvc = JaxService(max_batch=4, max_wait_ms=20, streaming_threshold_s=0.5,
+                      chunk_seconds=0.25)
+    try:
+        # without metrics: the JAX meter's compile is the costliest part here
+        want = jsvc.render(JaxJob(clip, RATE, JaxParams(**kw), seed=6), timeout=300)
+        assert jsvc.stats()["batch_sizes"] == [1]
+    finally:
+        jsvc.stop()
+    gap = float(np.abs(res.audio - np.asarray(want.audio)).max())
+    record_property("port_vs_jax_streamed_gap", gap)
+    assert gap <= TOL
+    del res
+    gc.collect()
+    assert svc.stats()["retained_result_bytes"] == 0
+
+
+def test_warm_rejects_streaming_jobs():
     long_clip = np.zeros(RATE, np.float32)  # 1 s > 0.5 s
-    for call in (svc.submit, svc.warm):
-        with pytest.raises(ValueError, match="streaming renderer.*not ported"):
-            call(RenderJob(long_clip, RATE, RenderParams()))
-    assert svc.chunk_seconds == 0.25 and svc.stats()["queued"] == 0 and spy == []
-    # None disables the threshold
+    for make in (lambda: JaxService(max_batch=4, streaming_threshold_s=0.5, start=False),
+                 lambda: service(max_batch=4, streaming_threshold_s=0.5, start=False)):
+        svc = make()
+        try:
+            job_cls = JaxJob if isinstance(svc, JaxService) else RenderJob
+            params = JaxParams() if isinstance(svc, JaxService) else RenderParams()
+            with pytest.raises(ValueError, match="streaming-routed jobs have no batch buckets"):
+                svc.warm(job_cls(long_clip, RATE, params))
+        finally:
+            svc.stop()
+
+
+def test_threshold_none_renders_long_clips_single_shot(spy):
     free = service(max_batch=1, max_wait_ms=10, streaming_threshold_s=None)
     try:
-        assert free.render(RenderJob(long_clip, RATE, RenderParams(**BASE)), timeout=300)
+        assert free.render(RenderJob(np.zeros(RATE, np.float32), RATE, RenderParams(**BASE)),
+                           timeout=300)
     finally:
         free.stop()
-        svc.stop()
+    assert len(spy) == 1
 
 
 def test_backpressure_and_stopped_service():
@@ -582,6 +641,9 @@ def test_inflight_and_retained_accounting():
         assert st["dispatched_input_bytes_total"] == 2 * n_bucket * 4
         assert st["fetched_result_bytes_total"] >= sum(r.audio.nbytes for r in results)
         del results, futs
+        # the completer may still be returning from the group (its frame holds
+        # the items, their futures, their results): stop() joins it first
+        svc.stop()
         gc.collect()
         st = svc.stats()
         assert st["retained_results"] == 0 and st["retained_result_bytes"] == 0
