@@ -22,6 +22,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -86,25 +87,58 @@ def profiled(fn) -> dict:
     }
 
 
-def stage_times(clips: np.ndarray, fast: bool) -> dict:
-    from audio_raytracing_studio_tpu_torch import RenderParams
-    from audio_raytracing_studio_tpu_torch.models import pipeline
-    from audio_raytracing_studio_tpu_torch.ops import convolution, filters, ir_synth
-    from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda
-    from audio_raytracing_studio_tpu_torch.ops.ir_synth_cuda import fused_rir_bank
-    from audio_raytracing_studio_tpu_torch.parallel import sharding
+class BenchInputs(NamedTuple):
+    """The bench batch on its device: ``sharding._batched_internal``'s arguments."""
+
+    audio: torch.Tensor  # (B, 2, n_in) float32
+    seeds: torch.Tensor  # (B,) int32: 0 .. B-1
+    ir_scalars: "ir_synth.IRScalars"  # (B,) host arrays
+    mix: "pipeline.MixScalars"  # (B,) tensors on the device
+    setup: "pipeline.InternalSetup"
+
+    def render(self, ir_backend: str = "bank") -> torch.Tensor:
+        """The batched render, fast or exact as ``setup`` was built."""
+        from ..parallel import sharding
+
+        return sharding._batched_internal(self.audio, self.seeds, self.ir_scalars, self.mix,
+                                          self.setup.ir_shape, self.setup.spec,
+                                          ir_backend=ir_backend)
+
+
+def bench_inputs(clips: np.ndarray, fast: bool, device="cuda",
+                 params: Optional["RenderParams"] = None) -> BenchInputs:
+    """``bench.py``'s setup of a (B, n) mono batch: Room hall, Stereo
+    (``params`` overrides), one seed per clip, every input on ``device``."""
+    from ..models import pipeline
+    from ..ops import ir_synth
+    from ..params import RenderParams
 
     batch, n_in = clips.shape
     audio = torch.from_numpy(
         np.stack([pipeline._ensure_stereo_host(c).T for c in clips])
-    ).cuda()
-    seeds = torch.arange(batch, dtype=torch.int32, device="cuda")
+    ).to(device)
     setup = pipeline.build_internal_setup(
-        RenderParams(target_layout="Stereo"), RATE, n_in, fast_filters=fast
+        params or RenderParams(target_layout="Stereo"), RATE, n_in, fast_filters=fast
     )
-    spec, shape = setup.spec, setup.ir_shape
-    ir_sc = ir_synth.IRScalars.stack([setup.ir_scalars] * batch)
-    mix = pipeline.MixScalars.stack([setup.mix_scalars] * batch, "cuda")
+    return BenchInputs(
+        audio=audio,
+        seeds=torch.arange(batch, dtype=torch.int32, device=device),
+        ir_scalars=ir_synth.IRScalars.stack([setup.ir_scalars] * batch),
+        mix=pipeline.MixScalars.stack([setup.mix_scalars] * batch, device),
+        setup=setup,
+    )
+
+
+def stage_times(clips: np.ndarray, fast: bool) -> dict:
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.ops import convolution, filters
+    from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda
+    from audio_raytracing_studio_tpu_torch.ops.ir_synth_cuda import fused_rir_bank
+
+    inputs = bench_inputs(clips, fast)
+    audio, seeds, ir_sc, mix = inputs.audio, inputs.seeds, inputs.ir_scalars, inputs.mix
+    batch, n_in = clips.shape
+    spec, shape = inputs.setup.spec, inputs.setup.ir_shape
     len_out = spec.len_out
 
     early, late = fused_rir_bank(seeds, shape, ir_sc)
@@ -144,9 +178,7 @@ def stage_times(clips: np.ndarray, fast: bool) -> dict:
     stages["back_half"] = event_ms(lambda: pipeline._mix_eq_spatial(dry, wet, mix, spec))
     del dry, wet
 
-    def render():
-        return sharding._batched_internal(audio, seeds, ir_sc, mix, shape, spec)
-
+    render = inputs.render
     stages["whole"] = event_ms(render)
     out = render()
     stages.update(meter_stages(out))

@@ -24,7 +24,10 @@ Drives the port's paths at full size and checks them:
   device STFT, the A/B profiler, the analyzer UI and the ``compat`` façade;
 - long clips — ``parallel.streaming.render_streaming`` on a 30-minute clip
   and the routes to it: ``cli.render --stream``, long jobs in
-  ``RenderService`` and its HTTP API.
+  ``RenderService`` and its HTTP API;
+- the tools — ``tools.bench`` (the port's bench line), ``tools.profile_exact``,
+  ``tools.bench_long bank``, ``tools.bench_serving`` and
+  ``tools.fuzz_campaign``, each through its ``main`` in this process.
 
 Phases, one line each:
 
@@ -150,12 +153,24 @@ Phases, one line each:
    short ones to their ``render_batch`` rows) and through the HTTP API;
    9f the bank at the streaming shapes; 9g the peak allocated memory and
    the memory beside the allocator of single-shot and streaming exact + EQ
-   renders at 30 and 60 min, Stereo and 5.1.  ``[9 timing]``.
+   renders at 30 and 60 min, Stereo and 5.1.  ``[9 timing]``;
+10. the tools, each line printed as ``[10x name] {...}``: 10a ``tools.bench``
+   at its defaults (B=48 × 60 s, fast and exact; its values > 0 and its
+   ``settled_*`` keys present, printed beside phase 5's realtime factors);
+   10b ``tools.profile_exact`` (its stage chain within 1e-5 of the whole
+   exact render); 10c ``tools.bench_long bank --batch 16`` (the bank's and
+   the plain IR path's renders within 1e-4); 10d ``tools.bench_serving``:
+   the burst of 48 × 60 s, ``--soak 15``, ``--matrix --soak 8`` and
+   ``--http --soak 15``, each with no failed job (every result of its true
+   length and not silent); 10e ``tools.fuzz_campaign`` parity 6, batch 3 and
+   streaming 3 on the card with no finding.  Every (shape, batch) the bank
+   was called with in the phase is held again, kernel against plain.
+   ``[10 timing]``.
 
 Development options (a run with either prints no result line):
-``--only 8`` or ``--only 9`` runs phases 1, 2 and that phase;
-``--rehearse-cpu SECONDS`` walks phases 8 and 9's control flow on the CPU at
-a short clip length.
+``--only 8``, ``--only 9`` or ``--only 10`` runs phases 1, 2 and that phase;
+``--rehearse-cpu SECONDS`` walks phases 8, 9 and 10's control flow on the
+CPU at a short clip length.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -231,23 +246,14 @@ def cuda_ms(torch, fn, iters: int) -> float:
 
 
 def settled_wall(torch, fn, settle_max: int = 12, samples: int = 3):
-    """bench.py's protocol: run until two consecutive samples agree within
-    20%, then the median of ``samples`` timed runs (host clock + sync)."""
+    """bench.py's protocol, as ``tools.bench.settle_and_median`` runs it: one
+    warm-up, then calls until two consecutive samples agree within 20%, then
+    the median of ``samples`` timed runs (host clock + sync) → (median, the
+    settle samples, the timed samples)."""
+    from audio_raytracing_studio_tpu_torch.tools.bench import settle_and_median
 
-    def once():
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    once()  # warm-up: cuFFT plans, allocator
-    settle = []
-    for _ in range(settle_max):
-        settle.append(once())
-        if len(settle) >= 2 and abs(settle[-1] - settle[-2]) <= 0.2 * min(settle[-2:]):
-            break
-    runs = sorted(once() for _ in range(samples))
-    return runs[len(runs) // 2], settle, runs
+    result = settle_and_median(fn, torch.cuda.synchronize, settle_max, samples)
+    return result["wall_s"], result["settle_runs_s"], result["runs_s"]
 
 
 def bank_bound(shape, batch: int, injected: bool) -> dict:
@@ -2236,10 +2242,154 @@ def streaming_phase(np, torch, bank, work: str, minutes: float = LONG_MINUTES,
     return out
 
 
+class BankRecorder:
+    """Records each distinct (shape, batch) the bank's wrappers are called
+    with while it is installed, so that a phase can hold every bank call it
+    made against the plain version afterwards.  The wrappers stay the ones
+    that count: the recorder calls them unchanged."""
+
+    def __init__(self, bank):
+        self.bank = bank
+        self.hash, self.injected = {}, {}
+
+    def __enter__(self):
+        bank = self.bank
+        self.originals = bank._rir_block_cuda, bank._rir_bank_cuda
+
+        def block(seeds, scal, shape):
+            self.hash.setdefault((shape, seeds.shape[0]), (seeds.clone(), scal.clone()))
+            return self.originals[0](seeds, scal, shape)
+
+        def injected(d, st, n, scal, shape):
+            self.injected.setdefault((shape, d.shape[0]),
+                                     (d.clone(), st.clone(), n.clone(), scal.clone()))
+            return self.originals[1](d, st, n, scal, shape)
+
+        bank._rir_block_cuda, bank._rir_bank_cuda = block, injected
+        return self
+
+    def __exit__(self, *exc):
+        self.bank._rir_block_cuda, self.bank._rir_bank_cuda = self.originals
+        return False
+
+    def hold(self, torch) -> list:
+        """Each recorded call again, kernel against plain → [worst hash-draws
+        max-abs, worst injected max-abs], each ≤ BANK_TOL."""
+        bank = self.bank
+        worst = [0.0, 0.0]
+        for (shape, batch), (seeds, scal) in self.hash.items():
+            kern = bank._rir_block_cuda(seeds, scal, shape)
+            plain = bank._rir_block_plain(seeds, scal, shape)
+            errs = [(k - q).abs().max().item() for k, q in zip(kern, plain)]
+            check(max(errs) <= BANK_TOL, f"bank at {shape} B={batch}: {errs} > {BANK_TOL}")
+            worst[0] = max(worst[0], *errs)
+        for (shape, batch), (d, st, n, scal) in self.injected.items():
+            *kern, raw_k = bank._rir_bank_cuda(d, st, n, scal, shape)
+            *plain, raw_p = bank._rir_bank_plain(d, st, n, scal, shape)
+            check(torch.equal(raw_k, raw_p), f"injected bank at {shape}: raw-noise flags differ")
+            errs = [(k - q).abs().max().item() for k, q in zip(kern, plain)]
+            check(max(errs) <= BANK_TOL,
+                  f"injected bank at {shape} B={batch}: {errs} > {BANK_TOL}")
+            worst[1] = max(worst[1], *errs)
+        torch.cuda.synchronize()
+        return worst
+
+
+def run_tool(main, argv) -> tuple:
+    """A tool's ``main(argv)`` in this process, its stdout captured → (exit
+    code, the JSON objects it printed, host seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    lines = []
+    for line in buf.getvalue().splitlines():
+        if line.startswith("{"):
+            lines.append(json.loads(line))
+    return rc, lines, wall
+
+
+def tooling_phase(np, torch, bank, work: str, rtf: dict, device: str = "cuda",
+                  small: bool = False) -> dict:
+    """Phase 10: the port's tools, each through its ``main(argv)`` in this
+    process, its JSON line printed and checked.  10a ``tools.bench`` at its
+    defaults; 10b ``tools.profile_exact`` (the stage chain reproduces the
+    whole render); 10c ``tools.bench_long bank --batch 16`` (the bank's and
+    the plain IR path's renders agree); 10d ``tools.bench_serving``: the
+    burst, ``--soak 15``, ``--matrix --soak 8`` and ``--http --soak 15``, each
+    with no failed job (every result of its true length and not silent);
+    10e ``tools.fuzz_campaign`` parity 6, batch 3 and streaming 3 with no
+    finding.  ``small`` shrinks every size for the CPU rehearsal.  Returns
+    the lines, the walls, the bank calls the tools made (counted before the
+    holds, which do not count) and the bank's worst errors against its
+    plain version over every (shape, batch) the phase called it with."""
+    from audio_raytracing_studio_tpu_torch.tools import (bench, bench_long, bench_serving,
+                                                         fuzz_campaign, profile_exact)
+
+    dev = ["--device", device]
+    if small:
+        bench_args = ["--batch", "2", "--seconds", "0.5"]
+        serve_args = ["--jobs", "4", "--seconds", "0.5", "--rate", "16000",
+                      "--soak-durations", "0.3,0.7", "--warm-buckets", "2",
+                      "--arrival-rate", "4"]
+        soaks = ("2", "1", "2")
+        fuzz = (("parity", "2"), ("batch", "2"), ("streaming", "2"))
+    else:
+        bench_args, serve_args = [], []
+        soaks = ("15", "8", "15")
+        fuzz = (("parity", "6"), ("batch", "3"), ("streaming", "3"))
+    lines, walls = {}, {}
+
+    def tool(label, main, argv):
+        rc, printed, wall = run_tool(main, argv + dev)
+        check(rc == 0 and printed, f"{label}: exit {rc}, lines {printed}")
+        walls[label] = wall
+        lines[label] = printed[-1]
+        for obj in printed:
+            print(f"[{label}] " + json.dumps(obj), flush=True)
+        return printed
+
+    with BankRecorder(bank) as recorder:
+        line = tool("10a bench", bench.main, bench_args)[-1]
+        check(line["value"] > 0 and line["value_exact"] > 0, f"10a: {line}")
+        check("settled_fast" in line and "settled_exact" in line, f"10a: settle keys in {line}")
+        print(f"[10a bench] beside phase 5: fast {line['value']:.1f} vs {rtf.get('fast')}, "
+              f"exact {line['value_exact']:.1f} vs {rtf.get('exact')} audio-s/s", flush=True)
+
+        line = tool("10b profile_exact", profile_exact.main,
+                    ["--iters", "1"] + bench_args if small else [])[-1]
+        check(line["chain_max_abs_err"] <= INVARIANCE_TOL,
+              f"10b: stage chain vs the whole render {line['chain_max_abs_err']}")
+
+        line = tool("10c bench_long bank", bench_long.main,
+                    ["bank", "--batch", "2" if small else "16"]
+                    + (["--seconds", "0.5"] if small else []))[-1]
+        check(line["max_abs_bank_vs_jnp"] <= RENDER_TOL,
+              f"10c: bank vs plain IR path {line['max_abs_bank_vs_jnp']} > {RENDER_TOL}")
+
+        for label, argv in (("10d burst", []), ("10d soak", ["--soak", soaks[0]]),
+                            ("10d matrix", ["--matrix", "--soak", soaks[1]]),
+                            ("10d http", ["--http", "--soak", soaks[2]])):
+            for obj in tool(label, bench_serving.main, serve_args + argv):
+                check(obj.get("failed") == 0, f"{label}: {obj}")
+
+        for mode, cases in fuzz:
+            findings = os.path.join(work, f"fuzz_{mode}.jsonl")
+            line = tool(f"10e fuzz {mode}", fuzz_campaign.main,
+                        [mode, cases, "--findings", findings])[-1]
+            check(line["findings"] == 0, f"10e fuzz {mode}: {line}")
+    launches = {"launches": bank.launch_count, "injected_launches": bank.injected_launch_count}
+    errs = recorder.hold(torch) if torch.device(device).type == "cuda" else [0.0, 0.0]
+    return {"lines": lines, "walls_s": walls, "bank_errs": errs, **launches,
+            "held": {"hash": len(recorder.hash), "injected": len(recorder.injected)}}
+
+
 def rehearse_cpu(seconds: float) -> int:
-    """``--rehearse-cpu SECONDS``: phases 8 and 9's control flow on the CPU at
-    a short clip length (phase 9's 30-minute clip becomes SECONDS long, every
-    other length in proportion), with the kernels' plain versions.  It measures nothing
+    """``--rehearse-cpu SECONDS``: phases 8, 9 and 10's control flow on the CPU
+    at a short clip length (phase 9's 30-minute clip becomes SECONDS long,
+    every other length in proportion; phase 10's tools run at their tiny
+    sizes), with the kernels' plain versions.  It measures nothing
     and prints no result line; it exists to find wrong paths, shapes and
     names before a run on the card."""
     import numpy as np
@@ -2254,6 +2404,8 @@ def rehearse_cpu(seconds: float) -> int:
         print("[8 rehearsal on the CPU: no device number] " + json.dumps(product["timing"]))
         long_clips = streaming_phase(np, torch, bank, work, minutes=seconds / 60.0, device="cpu")
         print("[9 rehearsal on the CPU: no device number] " + json.dumps(long_clips["timing"]))
+        tools = tooling_phase(np, torch, bank, work, {}, device="cpu", small=True)
+        print("[10 rehearsal on the CPU: no device number] " + json.dumps(tools["walls_s"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
@@ -2266,11 +2418,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU; "
                                  "with no arguments every phase runs and the result lines print.")
-    ap.add_argument("--only", choices=["8", "9"], default=None,
+    ap.add_argument("--only", choices=["8", "9", "10"], default=None,
                     help="development: phases 1, 2 and this one; prints no result line")
     ap.add_argument("--rehearse-cpu", type=float, default=None, metavar="SECONDS",
-                    help="development: phases 8 and 9's control flow on the CPU at this "
-                         "clip length")
+                    help="development: phases 8, 9 and 10's control flow on the CPU at "
+                         "this clip length")
     args = ap.parse_args(argv)
     if args.rehearse_cpu is not None:
         return rehearse_cpu(args.rehearse_cpu)
@@ -2338,8 +2490,22 @@ def main(argv=None) -> int:
               flush=True)
         return result
 
+    def tools(rtf):
+        """Phase 10 in a temporary directory, its bank calls counted from 0."""
+        bank.launch_count = bank.injected_launch_count = 0
+        work = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+        try:
+            result = tooling_phase(np, torch, bank, work, rtf)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print("[10 timing] " + json.dumps({
+            "card": card, "nvidia_smi": smi, "walls_s": result["walls_s"],
+            "launches": result["launches"], "injected_launches": result["injected_launches"],
+            "held": result["held"], "bank_errs": result["bank_errs"]}), flush=True)
+        return result
+
     if args.only is not None:
-        {"8": product, "9": long_clips}[args.only]()
+        {"8": product, "9": long_clips, "10": lambda: tools({})}[args.only]()
         print(f"chip_smoke: --only {args.only} ran phases 1, 2 and {args.only}; a partial run "
               "prints no result line")
         return 0
@@ -2585,6 +2751,14 @@ def main(argv=None) -> int:
     main_launches += stream["launches"]
     bank_err = max(bank_err, *stream["bank_errs"])
 
+    # --- 10. the tools: bench, profile_exact, bench_long bank, bench_serving, fuzz ---
+    torch.cuda.empty_cache()
+    tooling = tools({"fast": timing["rtf_fast"], "exact": timing["rtf_exact"]})
+    main_launches += tooling["launches"]
+    injected_launches += tooling["injected_launches"]
+    bank_err = max(bank_err, tooling["bank_errs"][0])
+    injected_err = max(injected_err, tooling["bank_errs"][1])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -2595,7 +2769,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
-        "launches": main_launches,  # phases 4, 4c, 6, 7, 8 and 9
+        "launches": main_launches,  # phases 4, 4c, 6, 7, 8, 9 and 10
         "max_abs_err": bank_err,
         "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],
@@ -2607,7 +2781,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:318",
-        "launches": injected_launches,
+        "launches": injected_launches,  # phases 4b and 10
         "max_abs_err": injected_err,
         "ms": timing["injected_device"]["ms"],
         "plain_ms": timing["injected_plain_ms"],

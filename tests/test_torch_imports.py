@@ -37,7 +37,9 @@ def test_every_port_module_is_listed():
                      "analysis.profiler", "app.marker", "app.api", "app._gradio_headless",
                      "app.server", "app.studio", "app.analyzer_ui", "__main__", "compat",
                      "parallel.streaming", "parallel.streaming_eq", "tools.bench_long",
-                     "tools.profile_render"):
+                     "tools.profile_render", "utils.logging_config", "utils.watchdog",
+                     "utils.profiling", "tools.bench", "tools.profile_exact",
+                     "tools.bench_serving", "tools.fuzz_campaign", "graft_entry"):
         assert f"{port.__name__}.{expected}" in names
 
 
