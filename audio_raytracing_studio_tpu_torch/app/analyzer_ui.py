@@ -7,10 +7,6 @@ format conversion with selectable bitrate).  This is the same two-mode tool
 on the port's meter, served with gradio when installed, else by the headless
 runtime; the underlying capabilities live in cli.analyzer and run on the
 process-wide default device (``utils.runtime.default_device()``).
-
-Conversion writes WAV only: the port's ``utils.wavio`` writes no other
-container yet (the non-WAV codecs are roadmap item 18), so every other target
-format answers "not supported by the PyTorch port yet".
 """
 
 from __future__ import annotations
@@ -71,8 +67,7 @@ def build_demo():
         with tempfile.NamedTemporaryFile(delete=False, suffix=f".{fmt}") as tmp:
             out_path = tmp.name
         try:
-            # bitrate sets a lossy encoder's rate; WAV has none
-            core.convert(path, out_path, device=device)
+            core.convert(path, out_path, bitrate, device=device)
             return out_path, f"Konvertierung abgeschlossen: {out_path}"
         except Exception as e:  # noqa: BLE001 — surfaced to the UI
             try:
@@ -96,9 +91,7 @@ def build_demo():
             norm_button.click(do_normalize, [ana_file, target], [norm_file, norm_report])
         with gr.Tab("🔄 Dateikonvertierung"):
             conv_file = gr.File(label="Audiodatei hochladen", file_types=["audio"])
-            # WAV only until the codecs are ported; do_convert answers any other
-            # format with wavio's "not supported by the PyTorch port yet"
-            fmt = gr.Dropdown(["wav"], value="wav", label="Zielformat")
+            fmt = gr.Dropdown(["wav", "mp3", "flac", "aac", "ogg"], value="mp3", label="Zielformat")
             bitrate = gr.Dropdown(["64", "128", "192", "256", "320"], value="256", label="Bitrate (kbit/s)")
             conv_button = gr.Button("Konvertieren")
             conv_out = gr.File(label="Ergebnis")

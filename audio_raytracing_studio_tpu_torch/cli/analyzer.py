@@ -2,23 +2,27 @@
 
 File analysis (rate / channels / duration / LUFS, optionally the 4×
 oversampled true peak), normalization to a target LUFS by a static gain,
-and conversion to WAV with an optional rate change (``ops.resample.
+and format conversion with an optional rate change (``ops.resample.
 resample_poly``).  Measurement and resampling run on the CUDA device unless
 ``--device cpu`` is given; ``--backend oracle`` meters with the float64
-NumPy meter (``oracle.loudness``) on the host instead.  The port reads WAV
-and AIFF and writes WAV.
+NumPy meter (``oracle.loudness``) on the host instead.  WAV, FLAC and
+Ogg/Vorbis convert with the in-repo codecs, MP3 through libmp3lame and
+AAC / M4A through the FFmpeg libraries (``utils.mp3io``, ``utils.lavcio``);
+the ffmpeg binary is only the last tier where a library is absent.
 
 Usage:
   python -m audio_raytracing_studio_tpu_torch.cli.analyzer analyze in.wav --true-peak
   python -m audio_raytracing_studio_tpu_torch.cli.analyzer normalize in.wav out.wav --target -16
-  python -m audio_raytracing_studio_tpu_torch.cli.analyzer convert in.aiff out.wav --samplerate 48000
+  python -m audio_raytracing_studio_tpu_torch.cli.analyzer convert in.wav out.mp3 --bitrate 256
+  python -m audio_raytracing_studio_tpu_torch.cli.analyzer convert in.flac out.ogg --samplerate 48000
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
+import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -96,26 +100,67 @@ def normalize_to_lufs(
     }
 
 
-def _not_supported(output_path: str) -> ValueError:
-    ext = os.path.splitext(str(output_path))[1] or "(no extension)"
-    return wavio.not_supported(f"the {ext} container")
+def convert(input_path: str, output_path: str, bitrate: str = "256",
+            samplerate: int | None = None, device="cuda") -> str:
+    """Format conversion (the reference's analyser.py:73-83), with the JAX
+    package's targets and tiers: WAV, FLAC (16 bit) and Ogg/Vorbis (at
+    ``vorbisenc.quality_for_bitrate(bitrate)``) in-repo, MP3 through
+    libmp3lame, AAC / M4A through the FFmpeg libraries, else the ffmpeg
+    binary.  ``samplerate`` also rate-converts with ``resample_poly`` on
+    ``device`` (the reference's converter changes containers only)."""
 
-
-def convert(input_path: str, output_path: str, samplerate: int | None = None,
-            device="cuda") -> str:
-    """WAV / AIFF → PCM16 WAV, rate-converted by ``resample_poly`` on
-    ``device`` when ``samplerate`` differs from the input's (the reference's
-    converter, analyser.py:73-83, changes containers only).  Any target but
-    ``.wav`` raises: the port writes no other container yet."""
-    if not str(output_path).lower().endswith(".wav"):
-        raise _not_supported(output_path)
-    data, rate = wavio.read(input_path)
-    if samplerate is not None and int(samplerate) != rate:
+    def _read():
+        data, rate = wavio.read(input_path)
+        if samplerate is None or int(samplerate) == rate:
+            return data, rate
         from ..ops.resample import resample_poly
 
         x = torch.from_numpy(data).to(ensure_device(device))
-        data, rate = resample_poly(x, int(samplerate), rate).cpu().numpy(), int(samplerate)
-    wavio.write(output_path, data, rate, subtype="PCM_16")
+        return resample_poly(x, int(samplerate), rate).cpu().numpy(), int(samplerate)
+
+    lower = output_path.lower()
+    if lower.endswith((".wav", ".flac")):  # PCM16 WAV or 16-bit FLAC
+        data, rate = _read()
+        wavio.write_audio(output_path, data, rate, subtype="PCM_16")
+        return output_path
+    if lower.endswith(".ogg"):
+        from ..utils import vorbisenc
+
+        data, rate = _read()
+        # the encoder is quality-mode (like libvorbis -q): the bitrate asks
+        # for a quality through the measured kbps → quality mapping
+        vorbisenc.write(output_path, data, rate,
+                        quality=vorbisenc.quality_for_bitrate(int(bitrate)))
+        return output_path
+    if lower.endswith(".mp3"):
+        from ..utils import mp3io
+
+        if mp3io.encode_available():
+            data, rate = _read()
+            mp3io.write(output_path, data, rate, bitrate_kbps=int(bitrate))
+            return output_path
+        # libmp3lame absent → the ffmpeg tier below keeps the JAX contract
+    if lower.endswith((".aac", ".m4a", ".mp4")):
+        from ..utils import lavcio
+
+        if lavcio.encode_available():
+            data, rate = _read()
+            lavcio.encode_aac(output_path, data, rate, bitrate_kbps=int(bitrate))
+            return output_path
+        # FFmpeg libraries absent → the binary tier below
+    if shutil.which("ffmpeg") is None:
+        raise RuntimeError(
+            "ffmpeg not found — non-WAV conversion needs ffmpeg on PATH"
+        )
+    cmd = ["ffmpeg", "-y", "-i", str(input_path), "-b:a", f"{bitrate}k"]
+    if samplerate is not None:
+        cmd += ["-ar", str(int(samplerate))]
+    proc = subprocess.run(cmd + [str(output_path)], capture_output=True, timeout=600)
+    if proc.returncode != 0:
+        raise ValueError(
+            "ffmpeg-Konvertierung fehlgeschlagen: "
+            f"{proc.stderr.decode('utf-8', 'replace').strip()[:300]}"
+        )
     return output_path
 
 
@@ -140,12 +185,12 @@ def main(argv=None) -> int:
     n.add_argument("--device", default="cuda", help=device_help)
     n.add_argument("--backend", default="torch", choices=["torch", "oracle"])
 
-    c = sub.add_parser("convert", help="convert WAV/AIFF to WAV, optionally rate-converting")
+    c = sub.add_parser(
+        "convert", help="convert format (wav/flac/ogg/mp3/aac/m4a, no ffmpeg)"
+    )
     c.add_argument("input")
     c.add_argument("output")
-    # accepted so that the JAX CLI's command lines run unchanged; it sets a
-    # lossy encoder's bitrate, and the port writes WAV only
-    c.add_argument("--bitrate", default="256", help=argparse.SUPPRESS)
+    c.add_argument("--bitrate", default="256")
     c.add_argument("--samplerate", type=int, default=None,
                    help="also rate-convert (polyphase resampler on the device)")
     c.add_argument("--device", default="cuda", help=device_help)
@@ -165,8 +210,8 @@ def main(argv=None) -> int:
                                                device=args.device,
                                                backend=args.backend), indent=2))
         elif args.cmd == "convert":
-            print(convert(args.input, args.output, samplerate=args.samplerate,
-                          device=args.device))
+            print(convert(args.input, args.output, args.bitrate,
+                          samplerate=args.samplerate, device=args.device))
     except Exception as e:  # noqa: BLE001 — CLI error surface
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -14,7 +14,9 @@ Examples:
   python -m audio_raytracing_studio_tpu_torch.cli.render long.wav out.wav \
       --stream --chunk-seconds 30 --layout "5.1 (Standard)" --metrics
 
-The port reads WAV and AIFF and writes WAV.
+Inputs are anything ``utils.wavio.read`` reads (WAV, AIFF, FLAC, Ogg/Vorbis,
+MP3, AAC / M4A); the output's extension picks its encoder (``wavio.
+write_audio``: .flac, .ogg, .mp3, .aac / .m4a, anything else WAV).
 """
 
 from __future__ import annotations
@@ -86,8 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
         prog="ars-render",
         description="Audio Raytracing Studio — headless renderer (PyTorch / CUDA)",
     )
-    ap.add_argument("input", help="input audio file (WAV/AIFF)")
-    ap.add_argument("output", help="output WAV file; use {i} for sweep index")
+    ap.add_argument("input", help="input audio file (WAV/FLAC/AIFF/OGG/MP3/AAC/M4A)")
+    ap.add_argument(
+        "output",
+        help="output file; .flac/.ogg target the in-repo encoders, "
+        ".mp3/.aac/.m4a the system codec libraries, anything else writes "
+        "WAV; use {i} for sweep index",
+    )
     add_param_flags(ap)
     ap.add_argument(
         "--sweep",

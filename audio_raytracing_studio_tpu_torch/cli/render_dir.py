@@ -1,6 +1,8 @@
 """Directory batch renderer — port of ``audio_raytracing_studio_tpu/cli/render_dir.py``.
 
-Renders every WAV / AIFF file of a directory through the batched renderer
+Renders every audio file of a directory (WAV/FLAC/AIFF/OGG/MP3/M4A: anything
+``utils.wavio`` reads whose header declares a frame count) through the
+batched renderer
 (``parallel.sharding.render_batch``) on the CUDA device (``--device cpu``
 for the plain PyTorch path).  Clips are bucketed by (rate, length rounded
 up to a half-second grid) from header-only probes; each micro-batch is one
@@ -32,8 +34,8 @@ from ..utils import wavio
 from ..utils.runtime import ensure_device
 from .render import add_param_flags, params_from_args
 
-# The JAX package's list; FLAC, Ogg, MP3 and M4A files are found and then
-# skipped with the port's "not supported yet" message from the probe.
+# raw .aac (ADTS) is excluded: it carries no frame count, so the header-only
+# probe cannot bucket it — convert to m4a first (cli.analyzer convert)
 AUDIO_EXTENSIONS = (
     ".wav", ".flac", ".aiff", ".aifc", ".aif", ".ogg", ".mp3", ".m4a", ".mp4"
 )
@@ -49,7 +51,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ars-render-dir", description="directory batch renderer (PyTorch / CUDA)"
     )
-    ap.add_argument("input", help="input directory of audio files (WAV/AIFF)")
+    ap.add_argument(
+        "input", help="input directory of audio files (WAV/FLAC/AIFF/OGG/MP3/M4A)"
+    )
     ap.add_argument("output", help="output directory")
     ap.add_argument("--batch", type=int, default=8, help="micro-batch size")
     add_param_flags(ap)
@@ -96,7 +100,8 @@ def main(argv=None) -> int:
             print(f"skipping {name}: {e}", file=sys.stderr)
             continue
         if meta["frames"] <= 0:
-            # a zero-length clip would render as pure silence — skip it loudly
+            # an unknown length (Ogg with no EOS granule, unscannable MP3 …)
+            # would bucket to length 0 and render as pure silence — skip loud
             print(f"skipping {name}: could not determine length", file=sys.stderr)
             continue
         key = (meta["samplerate"], bucket_length(meta["frames"], meta["samplerate"]))
@@ -105,14 +110,16 @@ def main(argv=None) -> int:
         print("no readable audio files", file=sys.stderr)
         return 1
 
-    # unique OUTPUT name per input, decided up front: song.wav and song.aiff
+    # unique OUTPUT name per input, decided up front: song.wav and song.mp3
     # both map to song.wav otherwise, and concurrent post_chunk threads
     # would silently overwrite each other's results
     used_out: set = set()
 
     def _out_name(name: str) -> str:
         base, ext = os.path.splitext(name)
-        out = name if ext.lower() == ".wav" else base + ".wav"
+        # keep .wav/.flac/.ogg (write_audio dispatches on extension);
+        # other input formats (AIFF, MP3, M4A …) come back as WAV
+        out = name if ext.lower() in (".wav", ".flac", ".ogg") else base + ".wav"
         stem, oext = os.path.splitext(out)
         k = 1
         while out in used_out:

@@ -17,9 +17,8 @@ POST /v1/jobs          {"input": <uploaded path>, "params": {16 preset keys}?,
 GET  /v1/presets       {"presets": [...]} — the studio's preset files
 GET  /v1/jobs/<id>     {"status": "queued"|"done"|"error"|"cancelled",
                         "metrics"?: …, "metrics_string"?: …, "error"?: …}
-GET  /v1/jobs/<id>/result    the rendered audio (WAV PCM_16; a job that
-                             asks for "format": "flac" or "ogg" is refused
-                             with 400 until the port has those encoders)
+GET  /v1/jobs/<id>/result    the rendered audio (WAV PCM_16; .flac/.ogg by
+                             "format" in the job request)
 DELETE /v1/jobs/<id>   cancel a queued job (races the batcher: a job the
                        worker already picked up completes normally)
 GET  /v1/stats         batcher statistics (batch sizes, jobs done/failed)
@@ -156,8 +155,6 @@ class RenderHTTPService:
         fmt = str(payload.get("format", "wav")).lower()
         if fmt not in _FORMATS:
             raise ValueError(f"unknown format {fmt!r} (use wav/flac/ogg)")
-        if fmt != "wav":
-            raise wavio.not_supported(f"{_FORMATS[fmt]} output")
         base: Dict[str, Any] = {}
         preset = payload.get("preset")
         if preset:
@@ -270,7 +267,8 @@ class RenderHTTPService:
         return out
 
     def job_result_path(self, job_id: str) -> str:
-        """Write the result to a file once (the WAV PCM_16 contract)."""
+        """Write the result to a file once (the WAV PCM_16 contract, or the
+        requested codec via write_audio's extension dispatch)."""
         entry = self._entry(job_id)
         result = entry.future.result(timeout=0)  # raises if pending/errored
         with entry.lock:
@@ -495,6 +493,7 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    wavio.warm_native()  # g++ runs here, not inside the first request
     service = RenderService(
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,

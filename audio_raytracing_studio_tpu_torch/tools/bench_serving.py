@@ -27,9 +27,13 @@ Modes (each prints one JSON line; ``--matrix`` one per arm and a summary):
   listed as skipped: device meshes are ROADMAP item 16.
 - ``--http --soak S``: every job runs the client's whole lifecycle over
   real HTTP against ``RenderHTTPService`` on 127.0.0.1 (upload, job POST,
-  status polls, result download).  Uploads and results are WAV only until
-  the port has its other codecs (ROADMAP item 18); the line says so in
-  ``formats``.
+  status polls, result download).  Uploads and results cycle through
+  ``--http-formats`` (default WAV, FLAC and Ogg/Vorbis) on independent
+  indices (``http_mix``): every clip length meets every upload codec, and
+  every upload codec every result format; the line names them in ``formats``
+  and ``mix``.  Each job's wall is split as the client sees it (upload, job
+  POST with the upload's decode, queue and render, result GET with its
+  encode), and the slowest jobs are listed with their split.
 
 A ``StallWatchdog`` (``utils.watchdog``) guards every mode: when neither the
 batcher's counters nor the process's I/O move for ``--stall-timeout``
@@ -61,9 +65,10 @@ import numpy as np
 
 BURST_METRIC = "serving realtime factor (audio-sec/sec, end-to-end jobs)"
 SOAK_METRIC = "serving soak (Poisson arrivals, mixed lengths/metrics)"
-HTTP_METRIC = "serving soak over HTTP (WAV uploads, full job lifecycle)"
+HTTP_METRIC = "serving soak over HTTP (the line's formats, full job lifecycle)"
 MESH_SKIPPED = "device meshes are ROADMAP item 16"
-HTTP_FORMATS = ["wav"]  # uploads and results; FLAC and Ogg arrive with ROADMAP item 18
+HTTP_FORMATS = ["wav", "flac", "ogg"]  # uploads and results
+HTTP_SPLIT = ("upload_s", "submit_s", "wait_s", "result_s")
 
 
 def _rss_mb() -> float:
@@ -197,13 +202,31 @@ def matrix(args) -> int:
     return rc
 
 
+def http_mix(i: int, durations: list, codecs: list) -> tuple:
+    """Job ``i``'s (clip duration, upload codec, result format): the duration
+    cycles fastest, then the upload codec, then the result format, so no
+    codec is tied to one clip length and every D × C × C jobs hold each
+    combination once."""
+    nd, nc = len(durations), len(codecs)
+    return durations[i % nd], codecs[(i // nd) % nc], codecs[(i // (nd * nc)) % nc]
+
+
+def _split_stats(values: list) -> dict:
+    v = sorted(values)
+    return {"p50": _pct(v, 0.50), "p95": _pct(v, 0.95), "max": v[-1] if v else 0.0}
+
+
 def http_soak(args) -> int:
     """Sustained load THROUGH the HTTP layer: Poisson arrivals where each job
     is a full client lifecycle over real HTTP on this host — POST /v1/upload
-    with WAV bytes (decoded on the request thread at job-POST time), POST
-    /v1/jobs (mixed metrics, EQ and external-IR jobs), polls of the status,
-    the result's download — and the upload and result files are counted to
-    show they are reclaimed."""
+    with WAV, FLAC or Ogg bytes (decoded on the request thread at job-POST
+    time: the decode-starvation surface), POST /v1/jobs (mixed metrics, EQ
+    and external-IR jobs, mixed result formats), polls of the status, the
+    result's download (encoded on the request thread) and decode — and the
+    upload and result files are counted to show they are reclaimed.  Each
+    completed job's wall is split into upload, job POST, wait (queue, render
+    and the 0.25 s poll) and result GET."""
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
     from http.client import HTTPConnection
 
@@ -217,16 +240,24 @@ def http_soak(args) -> int:
     rng = np.random.default_rng(0x177E)
     durations = [float(d) for d in args.soak_durations.split(",")]
 
-    # one encoded upload per duration; the job mix cycles through them
-    blobs = {}
+    # one encoded upload per (duration, codec); ``http_mix`` picks each job's.
+    # A result's length is checked against the upload as the service
+    # decodes it: a short Ogg stream on one page comes back from the lavc
+    # tier padded to its last block (as in the JAX package)
+    codecs = [c.strip() for c in args.http_formats.split(",")]
+    tmpd = tempfile.TemporaryDirectory(prefix="ars_torch_httpsoak_")
+    blobs, decoded_frames = {}, {}
     for d in durations:
         n = int(d * rate)
         t = np.arange(n) / rate
         x = (0.35 * np.sin(2 * np.pi * 220.0 * t)
              + 0.05 * rng.standard_normal(n)).astype(np.float32)
-        buf = io.BytesIO()
-        wavio.write(buf, np.stack([x, 0.9 * x], axis=1), rate)
-        blobs[d] = buf.getvalue()
+        for c in codecs:
+            path = os.path.join(tmpd.name, f"clip_{d}.{c}")
+            wavio.write_audio(path, np.stack([x, 0.9 * x], axis=1), rate)
+            with open(path, "rb") as f:
+                blobs[(d, c)] = f.read()
+            decoded_frames[(d, c)] = wavio.read(path)[0].shape[0]
     n_ir = int(0.4 * rate)
     env = np.exp(-np.arange(n_ir) / (0.1 * rate)).astype(np.float32)
     ir = 0.4 * rng.standard_normal((n_ir, 2)).astype(np.float32) * env[:, None]
@@ -251,23 +282,27 @@ def http_soak(args) -> int:
     if st != 200:
         wd.stop()
         hsvc.stop()
+        tmpd.cleanup()
         print(json.dumps({"metric": HTTP_METRIC, "error": f"IR upload: {st} {data[:160]!r}"}))
         return 1
     ir_remote = json.loads(data)["path"]
 
     def run_job(i, t_arrival):
-        d = durations[i % len(durations)]
+        d, c, fmt = http_mix(i, durations, codecs)
         eq = i % 3 == 0
         extir = i % 5 == 4
         params = _soak_params(i, eq, extir)
-        st, data = _req("POST", "/v1/upload", blobs[d], {"X-Filename": f"clip{i}.wav"})
+        laps = [t_arrival]
+        st, data = _req("POST", "/v1/upload", blobs[(d, c)], {"X-Filename": f"clip{i}.{c}"})
+        laps.append(time.monotonic())
         if st != 200:
             return ("fail_upload", f"{st}: {data[:120]!r}", d)
         payload = {"input": json.loads(data)["path"], "seed": i, "metrics": i % 2 == 0,
-                   "format": "wav", "params": params}
+                   "format": fmt, "params": params}
         if extir:
             payload["external_ir"] = ir_remote
         st, data = _req("POST", "/v1/jobs", json.dumps(payload).encode())
+        laps.append(time.monotonic())
         if st == 503:
             return ("rejected", None, d)
         if st != 202:
@@ -281,20 +316,32 @@ def http_soak(args) -> int:
             if s in ("error", "cancelled"):
                 return ("fail_job", data[:160].decode("utf-8", "replace"), d)
             time.sleep(0.25)
+        laps.append(time.monotonic())
         st, data = _req("GET", f"/v1/jobs/{jid}/result")
+        laps.append(time.monotonic())
+        latency = laps[-1] - t_arrival  # the client's own decode is not the service's
         if st != 200:
             return ("fail_result", f"{st}: {len(data)} bytes", d)
-        audio, _ = wavio.read(io.BytesIO(data))
-        fault = result_fault(audio, expected_length(int(d * rate), rate,
+        path = os.path.join(tmpd.name, f"result_{i}.{fmt}")
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            audio, _ = wavio.read(path)
+        finally:
+            os.unlink(path)
+        fault = result_fault(audio, expected_length(decoded_frames[(d, c)], rate,
                                                     RenderParams.from_preset_dict(params),
                                                     n_ir))
         if fault:
             return ("fail_result", fault, d)
-        return ("ok", time.monotonic() - t_arrival, d)
+        split = {k: b - a for k, a, b in zip(HTTP_SPLIT, laps, laps[1:])}
+        return ("ok", {"latency_s": latency, "duration_s": d, "codec": c, "format": fmt,
+                       **split}, d)
 
     def stop_all():
         wd.stop()
         hsvc.stop()
+        tmpd.cleanup()
 
     # --- warm-up: one serialized job per signature, straight through HTTP ---
     t_warm = time.monotonic()
@@ -321,7 +368,7 @@ def http_soak(args) -> int:
               file=sys.stderr)
 
     lock = threading.Lock()
-    latencies: list = []
+    jobs_ok: list = []
     failures: list = []
     rejected = 0
     audio_ok = 0.0
@@ -364,7 +411,7 @@ def http_soak(args) -> int:
         except Exception as e:  # noqa: BLE001 — a client thread's crash is a failure
             kind, info, d = "fail_client", repr(e), 0.0
         if kind == "ok":
-            latencies.append(info)
+            jobs_ok.append(info)
             audio_ok += d
         elif kind == "rejected":
             rejected += 1
@@ -380,10 +427,14 @@ def http_soak(args) -> int:
     stop_all()
     rss_samples.append(_rss_mb())
 
-    lat = sorted(latencies)
+    lat = sorted(j["latency_s"] for j in jobs_ok)
+    nd, nc = len(durations), len(codecs)
     out = {
         "metric": HTTP_METRIC,
-        "formats": HTTP_FORMATS,
+        "formats": codecs,
+        "mix": {"durations_s": durations, "upload_codecs": codecs, "result_formats": codecs,
+                "rule": f"job i: duration i % {nd}, upload codec (i // {nd}) % {nc}, "
+                        f"result format (i // {nd * nc}) % {nc}"},
         "soak_seconds": wall,
         "arrival_rate_hz": args.arrival_rate,
         "http_workers": args.http_workers,
@@ -396,6 +447,13 @@ def http_soak(args) -> int:
         "latency_p50_s": _pct(lat, 0.50),
         "latency_p95_s": _pct(lat, 0.95),
         "latency_p99_s": _pct(lat, 0.99),
+        # the client's split of each completed job: upload POST, job POST (the
+        # upload's decode on the request thread), wait (queue, render, poll),
+        # result GET (the result's encode on the request thread)
+        "split_s": {k: _split_stats([j[k] for j in jobs_ok]) for k in HTTP_SPLIT},
+        "request_thread_s_mean": (sum(j["submit_s"] + j["result_s"] for j in jobs_ok)
+                                  / len(jobs_ok) if jobs_ok else 0.0),
+        "slowest": sorted(jobs_ok, key=lambda j: -j["latency_s"])[:3],
         "jobs_done_service": stats["jobs_done"],
         "dispatch_s": stats["dispatch_s"],
         "fetch_s": stats["fetch_s"],
@@ -708,8 +766,11 @@ def main(argv=None) -> int:
                     help="comma-separated clip durations (s) cycled through in the soak")
     ap.add_argument("--max-queued", type=int, default=64)
     ap.add_argument("--http", action="store_true",
-                    help="soak THROUGH the HTTP layer: per-job WAV upload → job POST → "
+                    help="soak THROUGH the HTTP layer: per-job upload → job POST → "
                          "status polling → result download")
+    ap.add_argument("--http-formats", default=",".join(HTTP_FORMATS),
+                    help="HTTP soak: comma-separated upload codecs and result formats "
+                         "(wav, flac, ogg)")
     ap.add_argument("--http-workers", type=int, default=16,
                     help="HTTP soak: concurrent client lifecycles")
     ap.add_argument("--matrix", action="store_true",

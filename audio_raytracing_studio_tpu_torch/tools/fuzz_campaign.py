@@ -20,13 +20,14 @@ contract of its JAX counterpart:
 - ``streaming``: ``render_streaming`` at chunk sizes that do not divide the
   clip, against the single-shot ``render``: ≤ 2e-4 (fast air) and ≤ 1e-4
   (exact air), PCM16 on the device bit-identical.
-- ``codec``: mutated WAV (PCM16, float) and AIFF files through
-  ``utils.wavio.read``: decode or a clean ``ValueError``.
+- ``codec``: mutated WAV (PCM16, float), AIFF, FLAC, Ogg/Vorbis and, where
+  their libraries load, MP3 and M4A files through ``utils.wavio.read``:
+  decode or a clean ``ValueError``.
 - ``encode``: ``wavio.write_audio`` of hostile inputs (NaN / Inf, empty,
   one sample, 1-16 channels, extreme rates, int16, strided views) as PCM16
-  and float WAV, read back: a clean ``ValueError`` or the right frame count
-  and rate, finite samples.  The port writes WAV only; FLAC, Ogg and MP3
-  (both directions) come with ROADMAP item 18.
+  and float WAV, 16- and 24-bit FLAC, Ogg/Vorbis and, where available, MP3
+  and M4A, read back: a clean ``ValueError`` or finite samples, and for
+  the lossless formats the right frame count and rate.
 - ``http``: hostile bytes against the studio's HTTP server and the job
   API: a parseable status that is never 5xx (the standard library's 501
   aside) or a closed connection, and both servers alive after each case.
@@ -271,8 +272,9 @@ def _aiff_bytes(samples: np.ndarray, rate: int) -> bytes:
 
 
 def _encode_corpus(tmpdir: str) -> list:
-    """One real file per container and sample format the port reads."""
-    from ..utils import wavio
+    """One real file per container and sample format the port reads (MP3 and
+    M4A where their libraries load)."""
+    from ..utils import lavcio, mp3io, wavio
 
     rate = 8000
     t = np.arange(rate // 2, dtype=np.float32) / rate
@@ -287,6 +289,15 @@ def _encode_corpus(tmpdir: str) -> list:
     with open(path, "wb") as f:
         f.write(_aiff_bytes(tone, rate))
     out.append(path)
+    exts = ["flac", "ogg"]
+    if mp3io.encode_available() and mp3io.decode_available():
+        exts.append("mp3")
+    if lavcio.encode_available() and lavcio.decode_available():
+        exts.append("m4a")
+    for ext in exts:
+        path = os.path.join(tmpdir, f"seed.{ext}")
+        wavio.write_audio(path, tone, rate)
+        out.append(path)
     return out
 
 
@@ -363,15 +374,20 @@ def run_codec(camp: Campaign, n_cases: int, start_seed: int) -> None:
 
 
 def run_encode(camp: Campaign, n_cases: int, start_seed: int) -> None:
-    from ..utils import wavio
+    from ..utils import lavcio, mp3io, wavio
 
-    subtypes = ["PCM_16", "FLOAT"]
+    targets = [("wav", "PCM_16"), ("wav", "FLOAT"), ("flac", "PCM_16"), ("flac", "PCM_24"),
+               ("ogg", "PCM_16")]
+    if mp3io.encode_available() and mp3io.decode_available():
+        targets.append(("mp3", "PCM_16"))
+    if lavcio.encode_available() and lavcio.decode_available():
+        targets.append(("m4a", "PCM_16"))
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmpdir:
         for i in range(n_cases):
             seed = start_seed + i
             rng = np.random.default_rng(seed)
-            subtype = subtypes[int(rng.integers(0, len(subtypes)))]
+            fmt, subtype = targets[int(rng.integers(0, len(targets)))]
             rate = int(rng.choice([1, 7, 8000, 22050, 44100, 48000, 192000, 2_822_400]))
             n = int(rng.choice([0, 1, 2, 63, 1024, int(rng.integers(1, 30000))]))
             ch = int(rng.choice([1, 2, 2, 6, 8, 16]))
@@ -385,7 +401,7 @@ def run_encode(camp: Campaign, n_cases: int, start_seed: int) -> None:
                 data = np.rint(data * 32767).astype(np.int16)
             elif hostile < 0.4:
                 data = data[::2]  # a strided view
-            path = os.path.join(tmpdir, f"enc_{i}.wav")
+            path = os.path.join(tmpdir, f"enc_{i}.{fmt}")
             try:
                 wavio.write_audio(path, data, rate, subtype=subtype)
                 back, back_rate = wavio.read(path)
@@ -393,7 +409,7 @@ def run_encode(camp: Campaign, n_cases: int, start_seed: int) -> None:
                                  and not np.all(np.isfinite(data)))
                 if finite_in and not np.all(np.isfinite(back)):
                     raise AssertionError("non-finite decode")
-                if data.size:
+                if data.size and fmt in ("wav", "flac"):  # lossless: exact length
                     if back.shape[0] != data.shape[0]:
                         raise AssertionError(f"frame count {back.shape} vs {data.shape}")
                     if back_rate != rate:
@@ -402,7 +418,8 @@ def run_encode(camp: Campaign, n_cases: int, start_seed: int) -> None:
                 pass  # clean rejection
             except Exception as e:  # noqa: BLE001
                 camp.record("encode_bad_exception", {
-                    "seed": seed, "subtype": subtype, "rate": rate, "shape": list(data.shape),
+                    "seed": seed, "fmt": fmt, "subtype": subtype, "rate": rate,
+                    "shape": list(data.shape),
                     "dtype": str(data.dtype), "error": f"{type(e).__name__}: {e}",
                     "trace": traceback.format_exc()[-2000:],
                 })
@@ -706,7 +723,7 @@ def run_soak(camp: Campaign, n_cases: int, start_seed: int) -> None:
     After every wave: the job registry ≤ cap + in-flight, the upload
     directory ≤ cap; at the end RSS and open-file growth over the steady
     part (from the first quarter on) stay under loose ceilings.  Results are
-    WAV (the port's only output format until ROADMAP item 18).
+    WAV or FLAC, as in the JAX campaign.
     """
     import urllib.request
 
@@ -748,7 +765,8 @@ def run_soak(camp: Campaign, n_cases: int, start_seed: int) -> None:
                     up = post("/v1/upload", f.read(), {"X-Filename": f"u{seed}.wav"})["path"]
                 jobs = [post("/v1/jobs", json.dumps({
                     "input": up, "seed": int(rng.integers(0, 99)),
-                    "metrics": bool(rng.uniform() < 0.5), "format": "wav",
+                    "metrics": bool(rng.uniform() < 0.5),
+                    "format": str(rng.choice(["wav", "flac"])),
                 }).encode())["job_id"] for _ in range(int(rng.integers(2, 6)))]
                 # poll to done; download the results of half, abandon the rest
                 deadline = time.time() + 300

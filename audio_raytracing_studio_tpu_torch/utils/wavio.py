@@ -1,17 +1,22 @@
-"""WAV and AIFF audio I/O — the port's own copy of the RIFF/WAVE and AIFF
-parts of ``audio_raytracing_studio_tpu/utils/wavio.py`` (pure NumPy, no
-device work).
+"""Audio I/O — the port's own copy of ``audio_raytracing_studio_tpu/utils/
+wavio.py`` (host code, no device work).
 
 - read: WAV PCM 8/16/24/32-bit and IEEE float32/64, plain and
   WAVE_FORMAT_EXTENSIBLE headers; AIFF / AIFC PCM ('NONE', 'sowt') and
-  'fl32'.  Returns float32, always 2-D (samples, channels), like
+  'fl32'; FLAC (``flacio``); Ogg/Vorbis (``lavcio`` first, then
+  ``vorbisio``); MP3 (``mp3io``, libmpg123); AAC / M4A and whatever else
+  libavformat demuxes (``lavcio``); then soundfile and the ffmpeg binary
+  where present.  Returns float32, always 2-D (samples, channels), like
   ``sf.read(dtype='float32', always_2d=True)``.
 - write: WAV PCM_16 (libsndfile's ×32768 / round-half-even conversion) or
-  FLOAT; an EXTENSIBLE header for more than two channels.
-- probe: header-only rate / channels / bits / frames of a WAV or AIFF file.
+  FLOAT, an EXTENSIBLE header for more than two channels; ``write_audio``
+  dispatches .flac / .ogg / .mp3 / .aac / .m4a / .mp4 to their encoders.
+- probe / info: header-only rate / channels / bits / frames.
 
-FLAC, Ogg, MP3, AAC and M4A are not read or written by the port yet: they
-raise ``ValueError`` (the CLIs report it as ``error: …``).
+PCM16 conversion runs in the C++ loop of ``_native/pcm_codec.cc`` (built at
+first use by ``kernels.build_host``) where g++ can build it, else in NumPy,
+to the same bits.  ``warm_native`` builds every host library of the codecs
+up front, so a server or a timed run does not pay for g++ in its first call.
 """
 
 from __future__ import annotations
@@ -19,9 +24,12 @@ from __future__ import annotations
 import io
 import os
 import struct
+import time
 from typing import BinaryIO, Tuple, Union
 
 import numpy as np
+
+from . import _native_pcm as _npcm
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -35,26 +43,39 @@ _CHANNEL_MASKS = {
     8: 0x63F,  # FL FR FC LFE BL BR SL SR
 }
 
-# output extensions of the JAX package's compressed encoders
+# output extensions of the compressed encoders (``write_audio``)
 COMPRESSED_EXTENSIONS = (".flac", ".ogg", ".mp3", ".aac", ".m4a", ".mp4")
 
 
-def not_supported(container: str) -> ValueError:
-    return ValueError(
-        f"{container} is not supported by the PyTorch port yet: it reads WAV "
-        "and AIFF and writes WAV"
-    )
+def warm_native() -> dict:
+    """Build (or find) the codecs' host libraries now: the native PCM16,
+    FLAC and Vorbis loops and the FFmpeg shim.  Returns, per library, whether
+    it is available and the seconds this call spent on it.  A library that
+    cannot build leaves its NumPy or next-tier path in place."""
+    from . import _native_flac, _native_vorbis, lavcio
+
+    out = {}
+    for name, available in (("pcm", _npcm.available), ("flac", _native_flac.available),
+                            ("vorbis", _native_vorbis.available),
+                            ("lavc", lavcio.decode_available)):
+        t0 = time.perf_counter()
+        out[name] = {"available": available(), "s": time.perf_counter() - t0}
+    return out
 
 
 def encode_pcm16(x: np.ndarray) -> np.ndarray:
     """float → int16 with libsndfile semantics: ×32768 in float32,
     round-half-even (lrintf), saturate."""
+    if _npcm.available():
+        return _npcm.encode_pcm16(np.ascontiguousarray(x, dtype=np.float32))
     scaled = np.rint(np.asarray(x, dtype=np.float32) * np.float32(32768.0))
     return np.clip(scaled, -32768, 32767).astype(np.int16)
 
 
 def decode_pcm16(raw: np.ndarray) -> np.ndarray:
     """int16 → float32 with libsndfile semantics: ÷32768."""
+    if _npcm.available():
+        return _npcm.decode_pcm16(np.ascontiguousarray(raw))
     return (raw.astype(np.float32)) / 32768.0
 
 
@@ -112,6 +133,33 @@ def sniff_container(head: bytes) -> Union[str, None]:
             return None
         return "MP3"
     return None
+
+
+def _decode_via_ffmpeg(path: Union[str, os.PathLike]) -> Tuple[np.ndarray, int]:
+    """Decode any ffmpeg-supported file to float32 WAV via a temp file."""
+    import subprocess
+    import tempfile
+
+    fd, tmp = tempfile.mkstemp(suffix=".wav", prefix="ars_decode_")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            ["ffmpeg", "-y", "-v", "error", "-i", str(path),
+             "-acodec", "pcm_f32le", "-f", "wav", tmp],
+            capture_output=True,
+        )
+        if proc.returncode != 0:
+            raise ValueError(
+                f"ffmpeg konnte die Datei nicht dekodieren: "
+                f"{proc.stderr.decode('utf-8', 'replace').strip()[:300]}"
+            )
+        with open(tmp, "rb") as fh:
+            return _read_stream(fh)
+    finally:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
 
 
 def _read_f80(raw: bytes) -> float:
@@ -190,7 +238,10 @@ def _read_aiff(path: Union[str, os.PathLike]) -> Tuple[np.ndarray, int]:
         else:
             raise ValueError(f"unsupported AIFF bit depth {bits}")
     else:
-        raise not_supported(f"compressed AIFC ({comp!r})")
+        raise ValueError(
+            f"unsupported AIFC compression {comp!r} — only PCM ('NONE'/'sowt') "
+            "and 'fl32' are supported natively; install ffmpeg for others"
+        )
     usable = (data.shape[0] // channels) * channels
     data = data[:usable]
     if frames > 0:
@@ -199,10 +250,129 @@ def _read_aiff(path: Union[str, os.PathLike]) -> Tuple[np.ndarray, int]:
     return data.reshape(-1, channels), int(round(rate))
 
 
-def read(path_or_file: Union[str, os.PathLike, BinaryIO]) -> Tuple[np.ndarray, int]:
-    """Read a WAV or AIFF file → (float32 array (samples, channels), rate).
+def _read_nonwav(path: Union[str, os.PathLike], container: str) -> Tuple[np.ndarray, int]:
+    """Non-WAV inputs: FLAC/AIFF/Ogg via the in-repo codecs, MP3 via the
+    system libmpg123 (ctypes), AAC/M4A — and anything the in-repo decoders
+    decline — via the FFmpeg *libraries* (utils/lavcio, a compiled shim; no
+    binary), else soundfile if importable, else the ffmpeg binary, else a
+    clear user-facing error (the reference reads FLAC/OGG via soundfile,
+    everything else via FFmpeg).  The tiers and their error strings are the
+    JAX package's, in its order."""
+    if container == "FLAC":
+        from . import flacio
 
-    File-like inputs must be WAV.  Other containers raise ``ValueError``.
+        try:
+            data, rate = flacio.read(path)
+        except EOFError as e:  # truncated stream → same error contract
+            raise ValueError(f"FLAC-Datei beschädigt oder abgeschnitten: {e}")
+        return np.asarray(data, dtype=np.float32), int(rate)
+    if container == "AIFF":
+        try:
+            return _read_aiff(path)
+        except ValueError as e:
+            if "unsupported AIFC compression" not in str(e):
+                raise
+            # compressed AIFC → fall through to soundfile/ffmpeg below
+    if container == "OGG/Vorbis":
+        from . import lavcio, vorbisio
+
+        if lavcio.decode_available():
+            # fast C tier first: libavcodec decodes Vorbis far faster than
+            # the in-repo decoder (tools/bench_codecs.py measures both),
+            # which matters because uploads decode on the serving HTTP
+            # thread.  Channel order
+            # agrees since vorbisenc/vorbisio speak spec order on the wire
+            # (vorbisio.WAV_FROM_VORBIS).  Any failure falls through to the
+            # native decoder, which keeps the precise error contract and
+            # stays the spec oracle (cross-validated in tests/test_vorbisio).
+            try:
+                data, rate = lavcio.decode(path)
+                return np.asarray(data, dtype=np.float32), int(rate)
+            except ValueError:
+                pass
+        try:
+            data, rate = vorbisio.decode(path)
+            return np.asarray(data, dtype=np.float32), int(rate)
+        except vorbisio.UnsupportedCodec:
+            # legal Ogg, non-native payload (Opus, Ogg/FLAC, Speex, floor-0
+            # Vorbis …) → fall through to the universal/soundfile/ffmpeg tiers
+            pass
+        except ValueError as e:
+            raise ValueError(f"OGG-Datei beschädigt oder abgeschnitten: {e}")
+    if container == "MP3":
+        from . import mp3io
+
+        if mp3io.decode_available():
+            # libmpg123 bound directly (all MPEG layers); decode errors are
+            # terminal — EXCEPT for ID3-prefixed files: taggers prepend
+            # ID3v2 to any container (FLAC included), so an "MP3" sniffed
+            # only off its tag may not be MPEG audio at all — let the
+            # universal lavc tier inspect the real payload instead
+            try:
+                with open(path, "rb") as fh:
+                    id3_prefixed = fh.read(3) == b"ID3"
+            except OSError:
+                id3_prefixed = False
+            try:
+                data, rate = mp3io.decode(path)
+                return np.asarray(data, dtype=np.float32), int(rate)
+            except ValueError as e:
+                if not id3_prefixed:
+                    raise ValueError(
+                        f"MP3-Datei beschädigt oder abgeschnitten: {e}"
+                    )
+    from . import lavcio
+
+    if container in ("AAC", "MP4/M4A"):
+        if lavcio.decode_available():
+            # FFmpeg libraries bound directly; decode errors are terminal —
+            # only library absence falls through to the tiers below
+            try:
+                data, rate = lavcio.decode(path)
+                return np.asarray(data, dtype=np.float32), int(rate)
+            except ValueError as e:
+                raise ValueError(
+                    f"{container}-Datei beschädigt oder nicht dekodierbar: {e}"
+                )
+    elif lavcio.decode_available():
+        # universal library tier for whatever the native decoders declined
+        # (compressed AIFC, Opus-in-Ogg, floor-0 Vorbis, WMA …); failures
+        # here keep the soundfile/ffmpeg tiers' error contract
+        try:
+            data, rate = lavcio.decode(path)
+            return np.asarray(data, dtype=np.float32), int(rate)
+        except ValueError:
+            pass
+    try:  # optional, not in the base image
+        import soundfile as sf  # type: ignore
+
+        data, rate = sf.read(str(path), dtype="float32", always_2d=True)
+        return np.asarray(data, dtype=np.float32), int(rate)
+    except (ImportError, OSError):
+        # OSError: the package imports but libsndfile.so is absent —
+        # fall through to ffmpeg rather than leaking a linker error
+        pass
+    import shutil
+
+    if shutil.which("ffmpeg") is not None:
+        return _decode_via_ffmpeg(path)
+    raise ValueError(
+        f"{container}-Eingabe wird nativ nicht unterstützt und ffmpeg wurde "
+        f"nicht gefunden. Bitte die Datei als WAV bereitstellen oder ffmpeg "
+        f"installieren (wie beim Referenz-Studio: FFmpeg-Abhängigkeit für "
+        f"Nicht-WAV-Formate)."
+    )
+
+
+def read(path_or_file: Union[str, os.PathLike, BinaryIO]) -> Tuple[np.ndarray, int]:
+    """Read an audio file → (float32 array of shape (samples, channels), rate).
+
+    WAV/FLAC/AIFF/OGG decode in-repo, MP3 through the system libmpg123,
+    AAC/M4A (and anything else libavformat can demux) through the FFmpeg
+    libraries bound in-process (utils/lavcio — no ffmpeg binary); only
+    when every tier is absent does a clear install-ffmpeg error surface
+    (reference: sf.read at raytracer_studio.py:1013, FFmpeg note at
+    :1396).  File-like inputs must be WAV.
     """
     if hasattr(path_or_file, "read"):
         return _checked_rate(_read_stream(path_or_file))
@@ -213,9 +383,7 @@ def read(path_or_file: Union[str, os.PathLike, BinaryIO]) -> Tuple[np.ndarray, i
             # unknown bytes still go to the WAV parser for its error message
             fh.seek(0)
             return _checked_rate(_read_stream(fh))
-    if container != "AIFF":
-        raise not_supported(f"{container} input")
-    return _checked_rate(_read_aiff(path_or_file))
+    return _checked_rate(_read_nonwav(path_or_file, container))
 
 
 # Highest sample rate any real-world audio format uses (DSD64).  A crafted
@@ -316,13 +484,44 @@ def write_audio(
     rate: int,
     subtype: str = "PCM_16",
 ) -> None:
-    """Write by extension, as the JAX package's ``write_audio`` does: the
-    compressed containers (.flac, .ogg, .mp3, .aac, .m4a, .mp4) raise
-    ``ValueError`` — the port has no encoder for them yet — and anything else
-    is written as WAV."""
+    """Extension-dispatching writer: ``.flac`` → the in-repo FLAC encoder,
+    ``.ogg`` → the in-repo Vorbis encoder, ``.mp3`` → libmp3lame (utils/
+    mp3io, ≤2 channels), ``.aac``/``.m4a``/``.mp4`` → the FFmpeg
+    libraries' AAC-LC encoder (utils/lavcio), anything else → WAV.  Lets
+    every CLI accept compressed output targets (the reference can only
+    write WAV, raytracer_studio.py:1084; FLAC halves the file at
+    bit-identical 16-bit fidelity, Ogg/Vorbis/MP3/AAC compress further,
+    lossily).  ``subtype`` applies to the PCM containers ("PCM_16" →
+    16-bit, "FLOAT"/"PCM_24" → 24-bit FLAC); the lossy encoders are float
+    end to end.
+    """
     lower = str(path).lower()
-    if lower.endswith(COMPRESSED_EXTENSIONS):
-        raise not_supported(f"{os.path.splitext(lower)[1]} output")
+    if np.asarray(data).dtype == np.int16 and lower.endswith(COMPRESSED_EXTENSIONS):
+        # compressed encoders are float end-to-end; ÷32768 is exactly
+        # invertible for every int16 value, so a device-quantized PCM16
+        # buffer loses nothing on the way in
+        data = decode_pcm16(np.asarray(data))
+    if lower.endswith(".flac"):
+        from . import flacio
+
+        bits = 16 if subtype == "PCM_16" else 24
+        flacio.write(path, data, rate, bits_per_sample=bits)
+        return
+    if lower.endswith(".ogg"):
+        from . import vorbisenc
+
+        vorbisenc.write(path, data, rate)
+        return
+    if lower.endswith(".mp3"):
+        from . import mp3io
+
+        mp3io.write(path, data, rate)
+        return
+    if lower.endswith((".aac", ".m4a", ".mp4")):
+        from . import lavcio
+
+        lavcio.encode_aac(path, data, rate)
+        return
     write(path, data, rate, subtype=subtype)
 
 
@@ -393,7 +592,8 @@ def write(
     if total > 0xFFFFFFFF:
         # RIFF sizes are 32-bit; fail BEFORE open() truncates an existing file
         raise ValueError(
-            f"WAV cannot hold {total} bytes (4 GiB RIFF limit) — split the render"
+            f"WAV cannot hold {total} bytes (4 GiB RIFF limit) — "
+            "write FLAC instead or split the render"
         )
 
     if hasattr(path_or_file, "write"):
@@ -457,11 +657,35 @@ def probe(path: Union[str, os.PathLike]) -> dict:
 def _probe_impl(path: Union[str, os.PathLike]) -> dict:
     with open(path, "rb") as fh:
         header = fh.read(12)
+        if header[:4] == MAGIC_FLAC:
+            from . import flacio
+
+            return flacio.probe(path)
         if header[:4] == b"FORM" and header[8:12] in (b"AIFF", b"AIFC"):
             return _probe_aiff(path)
-        container = sniff_container(header)
-        if container not in ("WAV", None):
-            raise not_supported(f"{container} input")
+        if header[:4] == b"OggS":
+            from . import vorbisio
+
+            meta = vorbisio.probe(path)
+            meta.setdefault("bits", 0)  # lossy: no PCM bit depth
+            return meta
+        if sniff_container(header) == "MP3":
+            from . import mp3io
+
+            if not mp3io.decode_available():
+                raise ValueError(
+                    "MP3-Probe benötigt libmpg123 (nicht vorhanden)"
+                )
+            return mp3io.probe(path)
+        if sniff_container(header) in ("AAC", "MP4/M4A"):
+            from . import lavcio
+
+            if not lavcio.decode_available():
+                raise ValueError(
+                    "AAC/M4A-Probe benötigt die FFmpeg-Bibliotheken "
+                    "(nicht vorhanden)"
+                )
+            return lavcio.probe(path)
         if len(header) < 12 or header[:4] != b"RIFF" or header[8:12] != b"WAVE":
             raise ValueError("not a RIFF/WAVE file")
         fmt = None
@@ -498,5 +722,28 @@ def _probe_impl(path: Union[str, os.PathLike]) -> dict:
         "channels": int(channels),
         "bits": int(bits),
         "frames": int(frames),
+        "duration": frames / rate if rate > 0 else 0.0,
+    }
+
+
+def info(path: Union[str, os.PathLike]) -> dict:
+    """Basic file info: rate, channels, frames, duration (analyser.py:50-58).
+
+    Delegates to the header-only ``probe`` — decoding a whole clip to read
+    four header fields would cost hundreds of MB on an hour-long file.
+    Falls back to a full decode only where probe cannot help but read can
+    (e.g. the ffmpeg-binary tier for formats the native probes don't cover).
+    """
+    try:
+        meta = probe(path)
+        rate, frames = meta["samplerate"], meta["frames"]
+        channels = meta["channels"]
+    except (OSError, ValueError):
+        data, rate = read(path)
+        frames, channels = data.shape[0], data.shape[1]
+    return {
+        "samplerate": rate,
+        "channels": channels,
+        "frames": frames,
         "duration": frames / rate if rate > 0 else 0.0,
     }

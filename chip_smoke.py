@@ -27,12 +27,18 @@ Drives the port's paths at full size and checks them:
   ``RenderService`` and its HTTP API;
 - the tools — ``tools.bench`` (the port's bench line), ``tools.profile_exact``,
   ``tools.bench_long bank``, ``tools.bench_serving`` and
-  ``tools.fuzz_campaign``, each through its ``main`` in this process.
+  ``tools.fuzz_campaign``, each through its ``main`` in this process;
+- the codecs — FLAC, Ogg/Vorbis, MP3 and AAC / M4A (host code) on their way
+  to and from the card through ``cli.render``, ``cli.render_dir`` and the
+  HTTP job API, and ``tools.bench_codecs``.
 
 Phases, one line each:
 
 1. environment: torch/CUDA versions, card name and power limit, TF32 off;
-2. build: compiles ``csrc/rir_bank.cu`` (both launchers) with nvcc;
+2. build: compiles ``csrc/rir_bank.cu`` (both launchers) with nvcc and,
+   beside it in a thread, the codecs' host libraries with g++
+   (``wavio.warm_native``: native PCM16, FLAC, Vorbis, the FFmpeg shim), so
+   no timed call of a later phase pays for a build;
 3. bank check: the hash-draws kernels' final IRs against their plain
    PyTorch version's on the card (bench shape with seeds ≥ 2^31; a
    multi-tile Cathedral IR of odd length; split_point 1 at B=1), one counted
@@ -97,7 +103,8 @@ Phases, one line each:
    API on 127.0.0.1 — four 60 s WAVs and a stereo IR uploaded; a params
    job, a preset job and an external-IR job polled to the end, their WAV
    bytes equal to ``wavio.write`` of the direct render's PCM16; a queued
-   job deleted; 400, 403, 404, 409, 410 and 413 answered.  The bank is
+   job deleted; flac and ogg jobs accepted (202) and cancelled; 400 (an
+   unknown format among them), 403, 404, 409, 410 and 413 answered.  The bank is
    held to its plain version at B in {1, 2, 4, 8, 16, 32, 48} × 72,000 and
    at 7b's Cathedral 300 groups.  ``[7 timing]``: the walls and
    audio-seconds per second of each arm, ``dispatch_s`` and ``fetch_s``
@@ -160,17 +167,43 @@ Phases, one line each:
    10b ``tools.profile_exact`` (its stage chain within 1e-5 of the whole
    exact render); 10c ``tools.bench_long bank --batch 16`` (the bank's and
    the plain IR path's renders within 1e-4); 10d ``tools.bench_serving``:
-   the burst of 48 × 60 s, ``--soak 15``, ``--matrix --soak 8`` and
-   ``--http --soak 15``, each with no failed job (every result of its true
-   length and not silent); 10e ``tools.fuzz_campaign`` parity 6, batch 3 and
+   the burst of 48 × 60 s, ``--soak 15``, ``--matrix --soak 8``, ``--http
+   --soak 15 --http-formats wav`` (WAV uploads and results at 2 jobs/s) and
+   ``--http --soak 60 --arrival-rate 0.5`` (WAV, FLAC and Ogg uploads and
+   results, each codec on every clip length; each job's wall split into
+   upload, job POST, wait and result GET, the slowest jobs printed), each
+   with no failed job (every result of its true length and not silent); 10e ``tools.fuzz_campaign`` parity 6, batch 3 and
    streaming 3 on the card with no finding.  Every (shape, batch) the bank
    was called with in the phase is held again, kernel against plain.
-   ``[10 timing]``.
+   ``[10 timing]``;
+11. the codecs, in a temporary directory.  11a the tiers: the native pcm /
+   flac / vorbis libraries built with g++ in phase 2 (a failed build fails
+   the run); libmpg123, libmp3lame, the FFmpeg shim, soundfile and the
+   ffmpeg binary are reported, and where one is absent the JAX package's
+   error for its format is checked; a failed shim build is not tried again
+   (its ``.failed`` marker answers, timed).  11b a 60 s, 48 kHz stereo clip (two of
+   ``tools/profile_render.bench_clips``) as FLAC, Ogg and (with libmp3lame)
+   MP3, each decoded, rendered on the card (Cathedral 300, 5.1, seed 3)
+   within 2e-5 of the CPU's render, and through ``cli.render`` into .flac
+   (within 1 LSB of the card's PCM16) and .ogg, the FLAC input also into
+   .mp3 (``--binaural``) and .m4a where their libraries load; each lossy
+   file decodes at its length and meets the JAX suites' SNR bound (Vorbis
+   28 dB, MP3 25 dB, AAC 15 dB).  11c ``cli.render_dir --batch 4`` over WAV,
+   FLAC, Ogg and AIFF files (and MP3 / M4A) with a corrupt FLAC, which is
+   skipped with the JAX package's message; every good file rendered at
+   true + IR − 1; ``cli.render`` on a FLAC cut mid-stream exits 1 with
+   "FLAC-Datei beschädigt oder abgeschnitten".  11d the HTTP job API with
+   FLAC and Ogg uploads and flac / wav / ogg results, each decoded at its
+   length and not silent, the FLAC result equal to the WAV one; an unknown
+   format answers 400.  11e ``tools.bench_codecs --lengths 60`` (its lines
+   printed) and the fuzz ``codec`` and ``encode`` modes, 12 cases each, no
+   finding.  The bank is held to its plain version at every (shape, batch)
+   the phase called it with.  ``[11 timing]``.
 
 Development options (a run with either prints no result line):
-``--only 8``, ``--only 9`` or ``--only 10`` runs phases 1, 2 and that phase;
-``--rehearse-cpu SECONDS`` walks phases 8, 9 and 10's control flow on the
-CPU at a short clip length.
+``--only 8``, ``--only 9``, ``--only 10`` or ``--only 11`` runs phases 1, 2
+and that phase; ``--rehearse-cpu SECONDS`` walks phases 8, 9, 10 and 11's
+control flow on the CPU at a short clip length.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -1332,9 +1365,13 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
         post_job({"input": "/etc/passwd", "params": {}}, expect=403)
         post_job([1, 2], expect=400)
         post_job({"input": paths[0], "seed": [3]}, expect=400)
-        for fmt in ("flac", "ogg"):
-            err = post_job({"input": paths[0], "format": fmt}, expect=400)
-            check("not supported by the PyTorch port" in err["error"], f"7c: {fmt}: {err}")
+        for fmt in ("flac", "ogg"):  # served formats: accepted, then cancelled while queued
+            served = post_job({"input": paths[0], "format": fmt})["job_id"]
+            code, body = http_call(http.port, "DELETE", f"/v1/jobs/{served}")
+            check(code == 200 and json.loads(body)["cancelled"] is True,
+                  f"7c: DELETE of the {fmt} job answered {code}")
+        err = post_job({"input": paths[0], "format": "mp3"}, expect=400)
+        check(err["error"] == "unknown format 'mp3' (use wav/flac/ogg)", f"7c: mp3: {err}")
         check(http_call(http.port, "GET", "/v1/jobs/" + "0" * 32)[0] == 404, "7c: unknown job")
         check(http_call(http.port, "GET", "/v1/nothing")[0] == 404, "7c: unknown path")
         with socket.create_connection(("127.0.0.1", http.port), timeout=30) as sock:
@@ -1375,7 +1412,7 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
                   f"7c: the served WAV of job {entry['job_id']} differs from the direct render's")
         results_s = time.perf_counter() - t0
         stats = json.loads(http_call(http.port, "GET", "/v1/stats")[1])
-        check(stats["jobs_done"] == 3 and stats["jobs_failed"] == 0 and stats["jobs_known"] == 4
+        check(stats["jobs_done"] == 3 and stats["jobs_failed"] == 0 and stats["jobs_known"] == 6
               and stats["inflight_input_bytes"] == 0 and "fft_plans" in stats,
               f"7c: stats {stats}")
     finally:
@@ -1384,8 +1421,9 @@ def serving_phase(np, torch, bank, work: str, clips, device: str = "cuda") -> di
                       "three_results_s": results_s}
     print(f"[7c http] 4 clips of {n_http / RATE:.2f} s and a stereo IR uploaded; params, preset "
           f"and external-IR jobs done, their WAV bytes = wavio.write of the direct render's "
-          f"PCM16; a queued job cancelled (410), 409 while queued, 400 (non-object, seed, "
-          f"flac, ogg), 403, 404, 413 answered; stats back to zero in-flight bytes", flush=True)
+          f"PCM16; a queued job cancelled (410), 409 while queued, flac and ogg jobs "
+          f"accepted (202), 400 (non-object, seed, an unknown format), 403, 404, 413 "
+          f"answered; stats back to zero in-flight bytes", flush=True)
     out["timing"] = timing
     return out
 
@@ -2317,8 +2355,10 @@ def tooling_phase(np, torch, bank, work: str, rtf: dict, device: str = "cuda",
     defaults; 10b ``tools.profile_exact`` (the stage chain reproduces the
     whole render); 10c ``tools.bench_long bank --batch 16`` (the bank's and
     the plain IR path's renders agree); 10d ``tools.bench_serving``: the
-    burst, ``--soak 15``, ``--matrix --soak 8`` and ``--http --soak 15``, each
-    with no failed job (every result of its true length and not silent);
+    burst, ``--soak 15``, ``--matrix --soak 8``, the WAV-only ``--http
+    --soak 15`` at 2 jobs/s and the mixed-codec ``--http --soak 60
+    --arrival-rate 0.5``, each with no failed job (every result of its true
+    length and not silent);
     10e ``tools.fuzz_campaign`` parity 6, batch 3 and streaming 3 with no
     finding.  ``small`` shrinks every size for the CPU rehearsal.  Returns
     the lines, the walls, the bank calls the tools made (counted before the
@@ -2333,11 +2373,19 @@ def tooling_phase(np, torch, bank, work: str, rtf: dict, device: str = "cuda",
         serve_args = ["--jobs", "4", "--seconds", "0.5", "--rate", "16000",
                       "--soak-durations", "0.3,0.7", "--warm-buckets", "2",
                       "--arrival-rate", "4"]
-        soaks = ("2", "1", "2")
+        soaks = ("2", "1", "2", "2")
+        http_rate = []
         fuzz = (("parity", "2"), ("batch", "2"), ("streaming", "2"))
     else:
         bench_args, serve_args = [], []
-        soaks = ("15", "8", "15")
+        soaks = ("15", "8", "15", "60")
+        # the mixed-codec HTTP soak's FLAC / Ogg uploads and results are host
+        # codec work on the request threads under one GIL: at the tool's 2
+        # jobs/s it falls behind on an H100 machine without the FFmpeg
+        # libraries (PERF.md section 6), so it runs at 0.5 jobs/s for 60 s
+        # (about 30 jobs) beside the WAV-only soak at 2 jobs/s; its line
+        # splits each job's wall, so what the codecs cost every job shows
+        http_rate = ["--arrival-rate", "0.5"]
         fuzz = (("parity", "6"), ("batch", "3"), ("streaming", "3"))
     lines, walls = {}, {}
 
@@ -2370,9 +2418,21 @@ def tooling_phase(np, torch, bank, work: str, rtf: dict, device: str = "cuda",
 
         for label, argv in (("10d burst", []), ("10d soak", ["--soak", soaks[0]]),
                             ("10d matrix", ["--matrix", "--soak", soaks[1]]),
-                            ("10d http", ["--http", "--soak", soaks[2]])):
+                            ("10d http wav", ["--http", "--soak", soaks[2],
+                                              "--http-formats", "wav"]),
+                            ("10d http", ["--http", "--soak", soaks[3]] + http_rate)):
             for obj in tool(label, bench_serving.main, serve_args + argv):
                 check(obj.get("failed") == 0, f"{label}: {obj}")
+            if label.startswith("10d http"):
+                line = lines[label]
+                check(line["completed"] == line["submitted"] > 0
+                      and set(line["split_s"]) == set(bench_serving.HTTP_SPLIT),
+                      f"{label}: {line}")
+                print(f"[{label}] {line['completed']} jobs, p50 {line['latency_p50_s']:.3f} s, "
+                      f"p95 {line['latency_p95_s']:.3f} s; split p50 / max (s): "
+                      + ", ".join(f"{k} {v['p50']:.3f} / {v['max']:.3f}"
+                                  for k, v in line["split_s"].items())
+                      + f"; slowest {json.dumps(line['slowest'])}", flush=True)
 
         for mode, cases in fuzz:
             findings = os.path.join(work, f"fuzz_{mode}.jsonl")
@@ -2385,11 +2445,356 @@ def tooling_phase(np, torch, bank, work: str, rtf: dict, device: str = "cuda",
             "held": {"hash": len(recorder.hash), "injected": len(recorder.injected)}}
 
 
+def snr_db(np, ref, got) -> float:
+    """10 log10(Σ ref² / Σ (got − ref)²) in float64: the JAX suites' bound."""
+    ref = np.asarray(ref, dtype=np.float64)
+    err = np.asarray(got, dtype=np.float64) - ref
+    return float(10 * np.log10(np.sum(ref ** 2) / max(np.sum(err ** 2), 1e-30)))
+
+
+def codec_phase(np, torch, bank, work: str, device: str = "cuda",
+                seconds: float = CLI_SECONDS, small: bool = False,
+                host_builds: dict = None) -> dict:
+    """Phase 11: the codecs' path to the card.  11a the tiers (the native
+    pcm / flac / vorbis libraries must have built: ``host_builds`` is phase
+    2's ``wavio.warm_native()``, run here when None); 11b a ``seconds`` stereo clip
+    as FLAC, Ogg and MP3 through ``cli.render`` on the card into .flac, .ogg
+    (and .mp3 / .m4a); 11c ``cli.render_dir`` over a mixed directory with a
+    corrupt FLAC, and ``cli.render`` on a truncated one; 11d the HTTP job API
+    with FLAC and Ogg uploads and results; 11e ``tools.bench_codecs`` and the
+    fuzz ``codec`` / ``encode`` modes.  Returns the tiers, the walls, the
+    bank calls (counted before the holds) and the bank's worst errors against
+    its plain version over every (shape, batch) the phase called it with."""
+    import importlib.util
+
+    from audio_raytracing_studio_tpu_torch import RenderParams, config
+    from audio_raytracing_studio_tpu_torch.cli import analyzer, render, render_dir
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.ops import binaural
+    from audio_raytracing_studio_tpu_torch.parallel import sharding
+    from audio_raytracing_studio_tpu_torch.serving import RenderService
+    from audio_raytracing_studio_tpu_torch.serving.service import RenderHTTPService
+    from audio_raytracing_studio_tpu_torch.tools import bench_codecs, fuzz_campaign
+    from audio_raytracing_studio_tpu_torch.tools.profile_render import bench_clips
+    from audio_raytracing_studio_tpu_torch.utils import (_native_flac, _native_lavc,
+                                                         _native_pcm, _native_vorbis, kernels,
+                                                         lavcio, mp3io, wavio)
+    from audio_raytracing_studio_tpu_torch.utils.runtime import ensure_device
+
+    dev = ensure_device(device)
+    on_card = dev.type == "cuda"
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+    out = {"walls_s": {}, "launches": 0, "checks": {}}
+    walls, checks = out["walls_s"], out["checks"]
+
+    def timed(label, fn, *a, **kw):
+        t0 = time.perf_counter()
+        result = fn(*a, **kw)
+        walls[label] = time.perf_counter() - t0
+        return result
+
+    def cli(label, main, argv, launches):
+        before = bank.launch_count
+        stdout, wall = run_cli(main, [*argv, "--device", device])
+        launched = bank.launch_count - before
+        expected = launches if on_card else 0  # the plain version is not counted
+        check(launched == expected, f"{label}: {launched} bank launches, expected {expected}")
+        walls[label] = wall
+        return stdout
+
+    # ---------------- 11a: the tiers ----------------
+    tiers = {}
+    warm = host_builds if host_builds is not None else wavio.warm_native()
+    builds = {name: w["s"] for name, w in warm.items()}
+    for name, mod in (("pcm", _native_pcm), ("flac", _native_flac), ("vorbis", _native_vorbis)):
+        mod.lib()  # raises the compiler's message: a failed build fails the phase
+        tiers[f"native_{name}"] = mod.available()
+    tiers.update(mpg123=mp3io.decode_available(), lame=mp3io.encode_available(),
+                 lavc=lavcio.decode_available(),
+                 soundfile=importlib.util.find_spec("soundfile") is not None,
+                 ffmpeg=shutil.which("ffmpeg") is not None)
+    tiers["ogg_decoder"] = "lavc" if tiers["lavc"] else "vorbisio"
+    if not tiers["lavc"]:
+        # the shim's failed build is remembered: a later process (each CLI
+        # call, each server start) reads the marker instead of running g++
+        t0 = time.perf_counter()
+        try:
+            kernels.build_host("lavc_shim", _native_lavc.LINK)
+        except RuntimeError as e:
+            check("an earlier build failed" in str(e), f"11a: lavc shim retried g++: {e}")
+            builds["lavc_marker"] = time.perf_counter() - t0
+        # else it built and only its load failed: there is no marker to read
+    out["tiers"], out["builds_s"] = tiers, builds
+    contracts = []
+    probe_wav = path("contract.wav")
+    wavio.write(probe_wav, np.zeros((480, 2), np.float32), RATE)
+    if not tiers["ffmpeg"]:
+        # an absent library gives the JAX package's error, not a crash
+        for ok, ext in ((tiers["lame"], ".mp3"), (tiers["lavc"], ".m4a")):
+            if ok:
+                continue
+            try:
+                analyzer.convert(probe_wav, path("contract" + ext), device=device)
+            except RuntimeError as e:
+                check(str(e) == "ffmpeg not found — non-WAV conversion needs ffmpeg on PATH",
+                      f"11a: convert to {ext} without its library: {e}")
+                contracts.append(f"convert {ext}")
+            else:
+                raise SmokeFailure(f"11a: convert to {ext} succeeded without its library")
+        if not tiers["lame"]:
+            try:
+                wavio.write_audio(path("contract.mp3"), np.zeros((480, 2), np.float32), RATE)
+            except RuntimeError as e:
+                check(str(e).startswith("libmp3lame nicht verfügbar"), f"11a: mp3 write: {e}")
+                contracts.append("write .mp3")
+            else:
+                raise SmokeFailure("11a: an MP3 was written without libmp3lame")
+    out["contracts"] = contracts
+    print(f"[11a tiers] {json.dumps(tiers)}; host library builds and the shim's "
+          f"marker (s) {json.dumps(builds)}; "
+          f"absent-library contracts checked: {contracts or 'none needed'}", flush=True)
+
+    with BankRecorder(bank) as recorder:
+        bank.launch_count = 0
+        # ---------------- 11b: one clip through the codecs and cli.render ----------------
+        clip = bench_clips(2, seconds)
+        song = np.stack([clip[0], 0.8 * clip[1]], axis=1)
+        n = song.shape[0]
+        inputs = ["flac", "ogg"] + (["mp3"] if tiers["lame"] else [])
+        decoded = {}
+        for codec in inputs:
+            timed(f"encode_in_{codec}", wavio.write_audio, path(f"in.{codec}"), song, RATE)
+            data, rate = timed(f"decode_in_{codec}", wavio.read, path(f"in.{codec}"))
+            check(rate == RATE and data.shape == song.shape,
+                  f"11b: {codec} input decodes to {data.shape} at {rate}")
+            decoded[codec] = data
+        check(np.array_equal(decoded["flac"], wavio.decode_pcm16(wavio.encode_pcm16(song))),
+              "11b: the FLAC input does not decode to its PCM16")
+        # the JAX suites' bounds: Vorbis 28 dB (tests/test_vorbisenc.py:141, default
+        # quality), MP3 25 dB (tests/test_mp3io.py:67, 256 kbps), AAC 15 dB at the
+        # best alignment (tests/test_lavcio.py:68, 192 kbps, lag 0 in MP4)
+        bounds = {"ogg": 28.0, "mp3": 25.0, "m4a": 15.0}
+        input_snr = {c: snr_db(np, song, decoded[c]) for c in inputs if c != "flac"}
+        for codec, snr in input_snr.items():
+            check(snr >= bounds[codec], f"11b: {codec} input SNR {snr:.1f} < {bounds[codec]} dB")
+        layout = "5.1 (Standard)"
+        flags = ["--hall", "Cathedral", "--room-size", "300", "--layout", layout, "--json",
+                 "--seed", "3"]
+        p = RenderParams(hall_type="Cathedral", room_size=300.0, target_layout=layout)
+        renders = {}
+        for codec in inputs:
+            before = bank.launch_count
+            ref = timed(f"render_{codec}", pipeline.render, decoded[codec], RATE, p, seed=3,
+                        device=dev)
+            check(bank.launch_count - before == (1 if on_card else 0),
+                  f"11b: render of the {codec} input: {bank.launch_count - before} launches")
+            cpu = pipeline.render(decoded[codec], RATE, p, seed=3, device="cpu")
+            err = float(np.abs(ref - cpu).max())
+            check(err <= CARD_CPU_TOL, f"11b: {codec} input card vs CPU {err} > {CARD_CPU_TOL}")
+            clipped = np.clip(ref, -config.OUTPUT_CLIP, config.OUTPUT_CLIP)
+            q = wavio.encode_pcm16(clipped)
+            res = {"card_vs_cpu": err}
+            targets = ["flac", "ogg"]
+            if codec == "flac":
+                targets += (["mp3"] if tiers["lame"] else []) + (["m4a"] if tiers["lavc"] else [])
+            for ext in targets:
+                target = path(f"out_{codec}.{ext}")
+                argv = [path(f"in.{codec}"), target, *flags]
+                if ext == "mp3":
+                    argv.append("--binaural")  # MP3 carries at most two channels
+                cli(f"cli {codec}->{ext}", render.main, argv, 1)
+                back, r = timed(f"decode_out_{codec}_{ext}", wavio.read, target)
+                check(r == RATE, f"11b: {target} at {r} Hz")
+                if ext == "flac":
+                    lsb = int(np.abs(np.rint(back * 32768.0).astype(np.int32)
+                                     - q.astype(np.int32)).max())
+                    check(back.shape == ref.shape and lsb <= 1,
+                          f"11b: {target} {back.shape} vs {ref.shape}, {lsb} LSB")
+                    res["flac_lsb"] = lsb
+                elif ext == "ogg":
+                    check(back.shape == ref.shape, f"11b: {target} {back.shape} vs {ref.shape}")
+                    res["ogg_snr_db"] = snr_db(np, clipped, back)
+                elif ext == "mp3":
+                    stereo = np.clip(binaural.binauralize(ref, RATE, layout, device=dev),
+                                     -config.OUTPUT_CLIP, config.OUTPUT_CLIP)
+                    check(back.shape == stereo.shape,
+                          f"11b: {target} {back.shape} vs {stereo.shape}")
+                    res["mp3_snr_db"] = snr_db(np, stereo, back)
+                else:
+                    check(ref.shape[0] <= back.shape[0] <= ref.shape[0] + 1024
+                          and back.shape[1] == ref.shape[1],
+                          f"11b: {target} {back.shape} vs {ref.shape} (+ ≤ 1024 frames)")
+                    res["m4a_snr_db"] = snr_db(np, clipped, back[:ref.shape[0]])
+                for key, ext_key in (("ogg_snr_db", "ogg"), ("mp3_snr_db", "mp3"),
+                                     ("m4a_snr_db", "m4a")):
+                    if ext == ext_key:
+                        check(res[key] >= bounds[ext],
+                              f"11b: {target} SNR {res[key]:.1f} < {bounds[ext]} dB")
+            renders[codec] = res
+        checks["11b"] = {"input_snr_db": input_snr, "renders": renders}
+        print(f"[11b render] {seconds:g} s stereo clip as {inputs} -> cli.render Cathedral 300 "
+              f"5.1 on {dev} -> flac/ogg (+ mp3 binaural, m4a from the FLAC input): "
+              f"{json.dumps(checks['11b'])} (card vs CPU tol {CARD_CPU_TOL}; FLAC 1 LSB; "
+              f"SNR bounds {bounds} dB)", flush=True)
+
+        # ---------------- 11c: render_dir over a mixed directory ----------------
+        d_in, d_out = path("dir_in"), path("dir_out")
+        os.makedirs(d_in)
+        lengths = (seconds / 3.0 - 0.3, seconds / 2.4 - 0.3)  # two half-second buckets
+        names = ["a.wav", "b.flac", "c.ogg", "d.aiff", "e.wav", "f.flac", "g.ogg"]
+        names += (["h.mp3"] if tiers["lame"] else []) + (["i.m4a"] if tiers["lavc"] else [])
+        for k, name in enumerate(names):
+            m = int(lengths[k % 2] * RATE)
+            x = clip[k % 2, :m]
+            x = x[:, None] if k % 3 == 0 else np.stack([x, 0.7 * x[::-1]], axis=1)
+            if name.endswith(".aiff"):
+                with open(os.path.join(d_in, name), "wb") as f:
+                    f.write(fuzz_campaign._aiff_bytes(x, RATE))
+            else:
+                wavio.write_audio(os.path.join(d_in, name), x, RATE)
+        with open(path("in.flac"), "rb") as f:
+            head = f.read(20)
+        with open(os.path.join(d_in, "corrupt.flac"), "wb") as f:
+            f.write(head)  # STREAMINFO cut short
+        schedule = {}
+        for name in names:
+            meta = wavio.probe(os.path.join(d_in, name))
+            key = sharding.bucket_length(meta["frames"], meta["samplerate"])
+            schedule[key] = schedule.get(key, 0) + 1
+        micro = sum(-(-count // 4) for count in schedule.values())
+        err_buf = io.StringIO()
+        with contextlib.redirect_stderr(err_buf):
+            stdout = cli("render_dir", render_dir.main,
+                         [d_in, d_out, "--batch", "4", "--layout", "Stereo", "--metrics",
+                          "--json"], micro)
+        result = json.loads(stdout)
+        check("skipping corrupt.flac: truncated FLAC metadata" in err_buf.getvalue(),
+              f"11c: the corrupt FLAC was not reported: {err_buf.getvalue()!r}")
+        kept = {".wav": ".wav", ".flac": ".flac", ".ogg": ".ogg"}
+        outputs = sorted(os.listdir(d_out))
+        want = sorted(os.path.splitext(nm)[0] + kept.get(os.path.splitext(nm)[1], ".wav")
+                      for nm in names)
+        check(outputs == want and len(result["clips"]) == len(names),
+              f"11c: outputs {outputs}, expected {want}")
+        for name in names:
+            x, _ = wavio.read(os.path.join(d_in, name))
+            stem, ext = os.path.splitext(name)
+            y, r = wavio.read(os.path.join(d_out, stem + kept.get(ext, ".wav")))
+            ir_len = pipeline.build_internal_spec(RenderParams(target_layout="Stereo"), RATE,
+                                                  x.shape[0])[0].len_out
+            check(r == RATE and y.shape == (ir_len, 2) and np.all(np.isfinite(y))
+                  and np.abs(y).max() > 0, f"11c: {name} -> {y.shape} at {r} (want {ir_len})")
+        # a FLAC truncated mid-stream: the JAX package's German message, exit 1
+        with open(path("in.flac"), "rb") as f:
+            blob = f.read()
+        with open(path("cut.flac"), "wb") as f:
+            f.write(blob[:len(blob) // 2])
+        err_buf = io.StringIO()
+        with contextlib.redirect_stderr(err_buf), contextlib.redirect_stdout(io.StringIO()):
+            rc = render.main([path("cut.flac"), path("cut_out.wav"), "--device", device])
+        check(rc == 1 and f"error: cannot read {path('cut.flac')}: FLAC-Datei beschädigt oder "
+              "abgeschnitten: " in err_buf.getvalue(), f"11c: truncated FLAC: {rc} "
+              f"{err_buf.getvalue()!r}")
+        checks["11c"] = {"files": names, "micro_batches": micro,
+                         "audio_seconds": result["audio_seconds"]}
+        print(f"[11c render_dir] {len(names)} files {names} + corrupt.flac in {micro} "
+              f"micro-batches: every good file rendered (true + IR - 1, .flac/.ogg kept), "
+              f"corrupt.flac skipped with 'truncated FLAC metadata'; cli.render on a FLAC cut "
+              f"mid-stream exits 1 with 'FLAC-Datei beschädigt oder abgeschnitten'", flush=True)
+
+        # ---------------- 11d: the HTTP job API with FLAC and Ogg ----------------
+        svc = RenderService(max_batch=4, max_wait_ms=50, pcm16_output=True, device=dev)
+        http = RenderHTTPService(svc, host="127.0.0.1", port=0).start()
+        t0 = time.perf_counter()
+        try:
+            m = int(min(10.0, seconds / 2) * RATE)
+            ups = {}
+            for codec in ("flac", "ogg"):
+                src = path(f"up.{codec}")
+                wavio.write_audio(src, song[:m], RATE)
+                with open(src, "rb") as f:
+                    code, body = http_call(http.port, "POST", "/v1/upload", f.read(),
+                                           {"X-Filename": f"up.{codec}"})
+                check(code == 200, f"11d: upload {codec} answered {code}")
+                ups[codec] = (json.loads(body)["path"], wavio.read(src)[0].shape[0])
+            params = {"target_layout": "Stereo", "diffusion": 0.6}
+            code, body = http_call(http.port, "POST", "/v1/jobs", json.dumps(
+                {"input": ups["flac"][0], "format": "mp3"}).encode())
+            check(code == 400 and json.loads(body)["error"]
+                  == "unknown format 'mp3' (use wav/flac/ogg)", f"11d: mp3 job: {code} {body}")
+            jobs = []
+            for codec, fmt in (("flac", "flac"), ("flac", "wav"), ("ogg", "ogg"), ("ogg", "flac")):
+                code, body = http_call(http.port, "POST", "/v1/jobs", json.dumps(
+                    {"input": ups[codec][0], "format": fmt, "seed": 5,
+                     "params": params}).encode())
+                check(code == 202, f"11d: {codec} -> {fmt} job answered {code}: {body[:200]}")
+                jobs.append((codec, fmt, json.loads(body)["job_id"]))
+            results = {}
+            deadline = time.monotonic() + 300
+            for codec, fmt, jid in jobs:
+                while True:
+                    st = json.loads(http_call(http.port, "GET", f"/v1/jobs/{jid}")[1])
+                    if st["status"] != "queued":
+                        break
+                    check(time.monotonic() < deadline, f"11d: job {jid} still queued")
+                    time.sleep(0.02)
+                check(st["status"] == "done", f"11d: {codec} -> {fmt} ended {st}")
+                code, blob = http_call(http.port, "GET", f"/v1/jobs/{jid}/result")
+                check(code == 200, f"11d: result of {codec} -> {fmt} answered {code}")
+                target = path(f"served_{codec}.{fmt}")
+                with open(target, "wb") as f:
+                    f.write(blob)
+                y, r = wavio.read(target)
+                want_len = pipeline.build_internal_spec(
+                    RenderParams(**params), RATE, ups[codec][1])[0].len_out
+                check(r == RATE and y.shape == (want_len, 2) and np.abs(y).max() > 0,
+                      f"11d: {codec} -> {fmt}: {y.shape} at {r}, want {want_len} frames")
+                results[(codec, fmt)] = y
+            check(np.array_equal(results[("flac", "flac")], results[("flac", "wav")]),
+                  "11d: the FLAC result differs from the WAV result of the same job")
+            served_snr = snr_db(np, results[("ogg", "flac")], results[("ogg", "ogg")])
+            check(served_snr >= bounds["ogg"], f"11d: served Ogg SNR {served_snr:.1f}")
+        finally:
+            http.stop()
+        walls["http"] = time.perf_counter() - t0
+        checks["11d"] = {"served_ogg_snr_db": served_snr}
+        print(f"[11d http] FLAC and Ogg uploads ({m / RATE:g} s); flac, wav, ogg results "
+              f"decoded at their true length and not silent, the FLAC result = the WAV "
+              f"result, the Ogg result {served_snr:.1f} dB against the FLAC one; 'mp3' "
+              f"answered 400", flush=True)
+        out["launches"] = bank.launch_count
+
+        # ---------------- 11e: bench_codecs and the codec fuzz modes ----------------
+        rc, lines, wall = run_tool(bench_codecs.main, ["--lengths", f"{seconds:g}",
+                                                       "--device", device])
+        check(rc == 0 and lines, f"11e bench_codecs: exit {rc}")
+        walls["bench_codecs"] = wall
+        for obj in lines:
+            print("[11e bench_codecs] " + json.dumps(obj), flush=True)
+            check(obj["host_only"] is True, f"11e: {obj}")
+            if obj["codec"] == "pcm16":
+                check(obj.get("bit_equal") is True, f"11e: native PCM16 vs NumPy: {obj}")
+            elif obj["available"]:
+                check(obj["encode_x_rt"] > 0 and obj["decode_x_rt"] > 0, f"11e: {obj}")
+        out["bench_codecs"] = lines
+        for mode in ("codec", "encode"):
+            rc, lines, wall = run_tool(fuzz_campaign.main, [
+                mode, "3" if small else "12", "--device", device,
+                "--findings", path(f"fuzz_{mode}.jsonl")])
+            check(rc == 0 and lines and lines[-1]["findings"] == 0,
+                  f"11e fuzz {mode}: exit {rc}, {lines[-1:]}")
+            walls[f"fuzz_{mode}"] = wall
+            print(f"[11e fuzz {mode}] " + json.dumps(lines[-1]), flush=True)
+    out["bank_errs"] = recorder.hold(torch) if on_card else [0.0, 0.0]
+    out["held"] = {"hash": len(recorder.hash), "injected": len(recorder.injected)}
+    return out
+
+
 def rehearse_cpu(seconds: float) -> int:
-    """``--rehearse-cpu SECONDS``: phases 8, 9 and 10's control flow on the CPU
-    at a short clip length (phase 9's 30-minute clip becomes SECONDS long,
+    """``--rehearse-cpu SECONDS``: phases 8, 9, 10 and 11's control flow on the
+    CPU at a short clip length (phase 9's 30-minute clip becomes SECONDS long,
     every other length in proportion; phase 10's tools run at their tiny
-    sizes), with the kernels' plain versions.  It measures nothing
+    sizes, phase 11's clip is SECONDS long), with the kernels' plain versions.  It measures nothing
     and prints no result line; it exists to find wrong paths, shapes and
     names before a run on the card."""
     import numpy as np
@@ -2406,6 +2811,11 @@ def rehearse_cpu(seconds: float) -> int:
         print("[9 rehearsal on the CPU: no device number] " + json.dumps(long_clips["timing"]))
         tools = tooling_phase(np, torch, bank, work, {}, device="cpu", small=True)
         print("[10 rehearsal on the CPU: no device number] " + json.dumps(tools["walls_s"]))
+        codec_work = os.path.join(work, "codecs")
+        os.makedirs(codec_work)
+        codecs = codec_phase(np, torch, bank, codec_work, device="cpu", seconds=seconds,
+                             small=True)
+        print("[11 rehearsal on the CPU: no device number] " + json.dumps(codecs["walls_s"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
@@ -2418,11 +2828,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU; "
                                  "with no arguments every phase runs and the result lines print.")
-    ap.add_argument("--only", choices=["8", "9", "10"], default=None,
+    ap.add_argument("--only", choices=["8", "9", "10", "11"], default=None,
                     help="development: phases 1, 2 and this one; prints no result line")
     ap.add_argument("--rehearse-cpu", type=float, default=None, metavar="SECONDS",
-                    help="development: phases 8, 9 and 10's control flow on the CPU at "
-                         "this clip length")
+                    help="development: phases 8, 9, 10 and 11's control flow on the CPU "
+                         "at this clip length")
     args = ap.parse_args(argv)
     if args.rehearse_cpu is not None:
         return rehearse_cpu(args.rehearse_cpu)
@@ -2456,12 +2866,21 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]} card {card!r} nvidia-smi {smi!r} tf32 off",
           flush=True)
 
-    # --- 2. build ---
+    # --- 2. build: nvcc for the kernels, g++ for the codecs' host libraries, at once ---
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audio_raytracing_studio_tpu_torch.utils import wavio
+
     t0 = time.perf_counter()
-    lib = kernels.build("rir_bank")
-    bank._launcher(), bank._injected_launcher()  # both symbols bind
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(wavio.warm_native)
+        lib = kernels.build("rir_bank")
+        bank._launcher(), bank._injected_launcher()  # both symbols bind
+        nvcc_s = time.perf_counter() - t0
+        host_builds = host.result()
     print(f"[2 build] {os.path.relpath(lib, REPO)} (rir_bank_launch, "
-          f"rir_bank_injected_launch) in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"rir_bank_injected_launch) in {nvcc_s:.2f} s; host libraries "
+          f"{json.dumps(host_builds)}; both in {time.perf_counter() - t0:.2f} s", flush=True)
 
     def product():
         """Phase 8 in a temporary directory, its bank calls counted from 0."""
@@ -2504,8 +2923,22 @@ def main(argv=None) -> int:
             "held": result["held"], "bank_errs": result["bank_errs"]}), flush=True)
         return result
 
+    def codecs():
+        """Phase 11 in a temporary directory, its bank calls counted from 0."""
+        work = tempfile.mkdtemp(prefix="chip_smoke_codecs_")
+        try:
+            result = codec_phase(np, torch, bank, work, host_builds=host_builds)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print("[11 timing] " + json.dumps({
+            "card": card, "nvidia_smi": smi, "tiers": result["tiers"],
+            "builds_s": result["builds_s"], "walls_s": result["walls_s"],
+            "launches": result["launches"], "held": result["held"],
+            "bank_errs": result["bank_errs"], "checks": result["checks"]}), flush=True)
+        return result
+
     if args.only is not None:
-        {"8": product, "9": long_clips, "10": lambda: tools({})}[args.only]()
+        {"8": product, "9": long_clips, "10": lambda: tools({}), "11": codecs}[args.only]()
         print(f"chip_smoke: --only {args.only} ran phases 1, 2 and {args.only}; a partial run "
               "prints no result line")
         return 0
@@ -2759,6 +3192,12 @@ def main(argv=None) -> int:
     bank_err = max(bank_err, tooling["bank_errs"][0])
     injected_err = max(injected_err, tooling["bank_errs"][1])
 
+    # --- 11. the codecs: FLAC, Ogg, MP3, AAC in and out of the CLIs and the job API ---
+    torch.cuda.empty_cache()
+    coded = codecs()
+    main_launches += coded["launches"]
+    bank_err = max(bank_err, coded["bank_errs"][0])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -2769,7 +3208,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
-        "launches": main_launches,  # phases 4, 4c, 6, 7, 8, 9 and 10
+        "launches": main_launches,  # phases 4, 4c, 6, 7, 8, 9, 10 and 11
         "max_abs_err": bank_err,
         "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],

@@ -124,13 +124,102 @@ def test_convert_matches_jax(files, tmp_path, capsys, record_property, src, rate
     assert np.abs(a - b).max() <= 1
 
 
+def codec_missing(ext):
+    from audio_raytracing_studio_tpu_torch.utils import lavcio, mp3io
+
+    if ext == ".mp3" and not (mp3io.encode_available() and mp3io.decode_available()):
+        return "libmp3lame / libmpg123 are not loadable here"
+    if ext in (".m4a", ".aac") and not lavcio.decode_available():
+        return "the FFmpeg libraries cannot be bound here"
+    return None
+
+
 @pytest.mark.parametrize("target", ["o.flac", "o.mp3", "o.ogg", "o.m4a", "o.aiff"])
 def test_convert_to_other_containers_not_supported(files, tmp_path, capsys, target):
-    rc, cap = run(tcli.main, ["convert", files / "music.wav", tmp_path / target, "--device",
-                              "cpu"], capsys)
-    assert rc == 1 and cap.err.startswith("error:")
-    assert "not supported by the PyTorch port yet" in cap.err
-    assert not (tmp_path / target).exists()
+    """Every conversion target of the JAX CLI: the same bytes (no rate change,
+    so the same samples reach the same encoder); a target no tier writes
+    (.aiff without the ffmpeg binary) fails with the JAX CLI's error."""
+    ext = target[target.index("."):]
+    if codec_missing(ext):
+        pytest.skip(codec_missing(ext))
+    rc_t, cap_t = run(tcli.main, ["convert", files / "music.wav", tmp_path / ("t" + target),
+                                  "--device", "cpu"], capsys)
+    rc_j, cap_j = run(jcli.main, ["convert", files / "music.wav", tmp_path / ("j" + target)],
+                      capsys)
+    assert rc_t == rc_j and cap_t.err == cap_j.err
+    if rc_t == 0:
+        assert (tmp_path / ("t" + target)).read_bytes() == \
+            (tmp_path / ("j" + target)).read_bytes()
+    else:
+        assert ext == ".aiff" and cap_t.err.startswith("error: ffmpeg not found")
+        assert not (tmp_path / ("t" + target)).exists()
+
+
+def snr_db(want, got):
+    err = np.sum((got.astype(np.float64) - want) ** 2)
+    return float(10 * np.log10(np.sum(want.astype(np.float64) ** 2) / max(err, 1e-30)))
+
+
+@pytest.mark.parametrize("src_ext, dst_ext, extra", [
+    (".flac", ".ogg", ["--samplerate", "48000", "--bitrate", "128"]),
+    (".ogg", ".flac", ["--samplerate", "16000"]),
+    (".mp3", ".m4a", ["--samplerate", "44100", "--bitrate", "160"]),
+    (".flac", ".mp3", ["--samplerate", "32000", "--bitrate", "192"]),
+    (".m4a", ".wav", []),
+])
+def test_convert_codecs_with_rate_change_match_jax(files, tmp_path, capsys, record_property,
+                                                   src_ext, dst_ext, extra):
+    """Compressed inputs to compressed outputs through ``resample_poly``:
+    lossless outputs within 1 LSB of the JAX CLI's, lossy ones of the same
+    shape within 40 dB SNR (Vorbis, MP3) or 20 dB (AAC, whose psychoacoustic
+    decisions move with the ≤ 1e-5 between the two resamplers) of the JAX
+    file."""
+    for ext in (src_ext, dst_ext):
+        if codec_missing(ext):
+            pytest.skip(codec_missing(ext))
+    src = tmp_path / ("in" + src_ext)
+    wavio.write_audio(src, signal(24000, 2, 7), 24000)
+    rc_t, cap_t = run(tcli.main, ["convert", src, tmp_path / ("t" + dst_ext), *extra,
+                                  "--device", "cpu"], capsys)
+    rc_j, cap_j = run(jcli.main, ["convert", src, tmp_path / ("j" + dst_ext), *extra], capsys)
+    assert rc_t == rc_j == 0, cap_t.err + cap_j.err
+    (a, rate), (b, want_rate) = (wavio.read(tmp_path / (w + dst_ext)) for w in "tj")
+    assert rate == want_rate and a.shape == b.shape
+    if dst_ext in (".flac", ".wav"):
+        lsb = int(np.abs(np.rint(a * 32768.0) - np.rint(b * 32768.0)).max())
+        record_property("pcm16_lsb", lsb)
+        assert lsb <= 1
+    else:
+        record_property("snr_db", snr_db(b, a))
+        assert snr_db(b, a) >= (20.0 if dst_ext == ".m4a" else 40.0)
+
+
+@pytest.mark.parametrize("ext", [".flac", ".ogg", ".mp3"])
+def test_normalize_codecs_match_jax(files, tmp_path, capsys, record_property, ext):
+    """normalize from and to FLAC / Ogg / MP3: the JAX CLI's report within
+    0.01 LU / dB, the FLAC output within 1 LSB, the lossy ones within 40 dB
+    SNR of the JAX file."""
+    if codec_missing(ext):
+        pytest.skip(codec_missing(ext))
+    src = tmp_path / ("in" + ext)
+    wavio.write_audio(src, signal(32000, 2, 8) * 0.2, 32000)
+    rc_t, cap_t = run(tcli.main, ["normalize", src, tmp_path / ("t" + ext), "--target", "-18",
+                                  "--device", "cpu"], capsys)
+    rc_j, cap_j = run(jcli.main, ["normalize", src, tmp_path / ("j" + ext), "--target", "-18"],
+                      capsys)
+    assert rc_t == rc_j == 0, cap_t.err + cap_j.err
+    got, want = json.loads(cap_t.out), json.loads(cap_j.out)
+    assert got["clipped"] == want["clipped"]
+    for k in ("input_lufs", "gain_db", "output_lufs"):
+        record_property(k, abs(got[k] - want[k]))
+        assert abs(got[k] - want[k]) <= LU_TOL
+    (a, rate), (b, want_rate) = (wavio.read(tmp_path / (w + ext)) for w in "tj")
+    assert rate == want_rate == 32000 and a.shape == b.shape
+    if ext == ".flac":
+        assert np.abs(np.rint(a * 32768.0) - np.rint(b * 32768.0)).max() <= 1
+    else:
+        record_property("snr_db", snr_db(b, a))
+        assert snr_db(b, a) >= 40.0
 
 
 @pytest.mark.parametrize("channels", [1, 2])

@@ -1,11 +1,12 @@
 """The port's analyzer UI (app/analyzer_ui.py) against the JAX package's,
 both under the headless runtime, and over the port's HTTP server.
 
-The same component tree apart from the convert tab's format list (the port
-writes WAV only until its codecs are ported, and says so in ``utils.wavio``'s
-words); ``do_analyze`` and ``do_normalize`` give the JAX package's reports
-within 0.01 LU / dB and normalized PCM16 within 1 LSB; ``do_convert`` to WAV
-gives equal bytes.  The device is the process-wide default (the CPU here).
+The same component tree, the convert tab's format list included;
+``do_analyze`` and ``do_normalize`` give the JAX package's reports within
+0.01 LU / dB and normalized PCM16 within 1 LSB; ``do_convert`` to WAV,
+FLAC, Ogg, MP3 and AAC gives equal bytes (MP3 and AAC where their
+libraries load, else the JAX UI's error string).  The device is the
+process-wide default (the CPU here).
 """
 
 import json
@@ -75,15 +76,15 @@ def drive(demos, sets, button):
 
 
 def test_same_components_apart_from_the_format_list(demos):
+    """The component trees are equal, the format list of the convert tab
+    (wav, mp3, flac, aac, ogg; mp3 first) included."""
     t, j = demos
     assert tui.GRADIO_AVAILABLE is False and isinstance(t, thl.Blocks)
     assert [(type(c).__name__, c.label, c.tab) for c in t.components] == \
         [(type(c).__name__, c.label, c.tab) for c in j.components]
     for a, b in zip(t.components, j.components):
-        if a.label == "Zielformat":
-            assert a.choices == ["wav"] and a.value == "wav" and "wav" in b.choices
-        else:
-            assert (a.choices, a.value) == (b.choices, b.value), a.label
+        assert (a.choices, a.value) == (b.choices, b.value), a.label
+    assert t.get("Zielformat").choices == ["wav", "mp3", "flac", "aac", "ogg"]
     assert len(t._all_deps) == len(j._all_deps) == 3
 
 
@@ -159,15 +160,26 @@ def test_do_convert_to_wav_gives_equal_bytes(demos, wavs):
 
 
 @pytest.mark.parametrize("fmt", ["mp3", "flac", "aac", "ogg"])
-def test_do_convert_to_other_formats_says_not_supported(wavs, fmt):
-    demo = tui.build_demo()
-    demo.get_all("Audiodatei hochladen")[-1].value = str(wavs / "stereo.wav")
-    demo.get("Zielformat").value = fmt  # not offered; a handler can still be handed it
-    demo.fire(demo.get("Konvertieren"), "click")
-    status = demo.get("Status").value
-    assert status.startswith("Konvertierung fehlgeschlagen: ")
-    assert str(wavio.not_supported(f"the .{fmt} container")) in status
-    assert demo.get("Ergebnis").value is None
+def test_do_convert_to_other_formats_says_not_supported(demos, wavs, fmt):
+    """Each compressed target at the chosen bitrate: the JAX UI's bytes, or
+    where the library is absent its same error string and no file."""
+    for demo in demos:
+        demo.set_value("Zielformat", fmt)
+        demo.set_value("Bitrate (kbit/s)", "128")
+    drive(demos, {"Audiodatei hochladen": str(wavs / "stereo.wav")}, "Konvertieren")
+    files = [d.get("Ergebnis").value for d in demos]
+    status = [d.get("Status").value for d in demos]
+    try:
+        if files[1] is None:
+            assert files[0] is None and status[0] == status[1]
+            assert status[0].startswith("Konvertierung fehlgeschlagen: ")
+        else:
+            assert all("abgeschlossen" in st for st in status)
+            assert open(files[0], "rb").read() == open(files[1], "rb").read()
+    finally:
+        for f in files:
+            if f is not None:
+                os.remove(f)
 
 
 def test_handlers_raise_without_a_card_and_main_starts_no_server(wavs, monkeypatch):

@@ -3,7 +3,8 @@
 size and prints its JSON line with no failed job (every result of its true
 length and not silent).  The soak modes run short clips off the
 half-second grid (0.3 and 0.7 s) and warm one bucket, so the arrivals are
-many and the warm-up is short."""
+many and the warm-up is short.  The HTTP soak's uploads and results cycle
+through WAV, FLAC and Ogg, or WAV alone with ``--http-formats wav``."""
 
 import json
 
@@ -22,6 +23,7 @@ MODES = [
     ("soak", ["--soak", "2"] + SOAK),
     ("matrix", ["--matrix", "--soak", "1"] + SOAK),
     ("http", ["--http", "--soak", "2"] + SOAK),
+    ("http-wav", ["--http", "--soak", "2", "--http-formats", "wav"] + SOAK),
 ]
 
 
@@ -47,9 +49,27 @@ def test_mode_prints_its_line_with_no_failed_job(mode, argv, capsys):
         assert "latency_p99_s" in line and "rss_peak_mb" in line and "pinned_end_mb" in line
     if mode == "soak":
         assert sum(line["dispatch_size_hist"].values()) > 0
-    if mode == "http":
-        assert line["formats"] == ["wav"]
+    if mode.startswith("http"):
+        formats = ["wav"] if mode == "http-wav" else ["wav", "flac", "ogg"]
+        assert line["formats"] == formats  # uploads and results
+        assert line["mix"]["upload_codecs"] == line["mix"]["result_formats"] == formats
         assert line["upload_files_end"] <= 64  # the service's upload cap
+        assert set(line["split_s"]) == set(bench_serving.HTTP_SPLIT)
+        slowest = line["slowest"]
+        walls = [job["latency_s"] for job in slowest]
+        assert 0 < len(slowest) <= 3 and walls == sorted(walls, reverse=True)
+        for job in slowest:  # the split adds up to the job's wall
+            assert job["codec"] in formats and job["format"] in formats
+            assert abs(sum(job[k] for k in bench_serving.HTTP_SPLIT) - job["latency_s"]) < 1e-6
+
+
+def test_http_mix_crosses_lengths_codecs_and_formats():
+    durations, codecs = [5.3, 14.7, 44.9], ["wav", "flac", "ogg"]
+    jobs = [bench_serving.http_mix(i, durations, codecs) for i in range(27)]
+    assert sorted(jobs) == sorted({(d, c, f) for d in durations for c in codecs for f in codecs})
+    assert jobs[:4] == [(5.3, "wav", "wav"), (14.7, "wav", "wav"), (44.9, "wav", "wav"),
+                        (5.3, "flac", "wav")]
+    assert bench_serving.http_mix(30, durations, ["wav"]) == (5.3, "wav", "wav")
 
 
 def test_result_fault_names_length_and_silence():

@@ -188,10 +188,22 @@ def test_stream_plus_sweep_exits_2_as_in_jax(files, monkeypatch, capsys):
 
 
 def test_compressed_output_not_supported(files, monkeypatch, capsys):
-    rc, cap = run(tcli.main, files, ["in.wav", "o.flac", "--device", "cpu"], "", monkeypatch,
-                  capsys)
-    assert rc == 2 and "not supported by the PyTorch port yet" in cap.err
-    assert not (files / "o.flac").exists()
+    """A WAV rendered to .flac is written (the extension picks the encoder)
+    within 1 LSB of the JAX CLI's, and a 5.1 render to .mp3 (two channels at
+    most) exits 2 with the JAX CLI's message, writing nothing."""
+    rc_t, cap_t = run(tcli.main, files, ["in.wav", "o.flac", "--device", "cpu"], "",
+                      monkeypatch, capsys)
+    rc_j, cap_j = run(jcli.main, files, ["in.wav", "oj.flac"], "", monkeypatch, capsys)
+    assert rc_t == rc_j == 0, cap_t.err + cap_j.err
+    (got, rate), (want, want_rate) = pcm(files / "o.flac"), pcm(files / "oj.flac")
+    assert rate == want_rate and got.shape == want.shape and np.abs(got - want).max() <= 1
+    if codec_missing("mp3"):
+        return
+    argv = ["in.wav", "o6.mp3", "--layout", "5.1 (Standard)"]
+    rc_t, cap_t = run(tcli.main, files, argv + ["--device", "cpu"], "", monkeypatch, capsys)
+    rc_j, cap_j = run(jcli.main, files, argv, "", monkeypatch, capsys)
+    assert rc_t == rc_j == 2 and cap_t.err == cap_j.err and cap_t.err.startswith("error:")
+    assert not (files / "o6.mp3").exists()
 
 
 def test_no_fallback_without_a_card(files, monkeypatch, capsys):
@@ -202,3 +214,56 @@ def test_no_fallback_without_a_card(files, monkeypatch, capsys):
         rc, cap = run(tcli.main, files, argv, "", monkeypatch, capsys)
         assert rc != 0 and "CUDA" in cap.err and "--device cpu" in cap.err
         assert not list(files.glob("nf*.wav"))
+
+
+CODECS_IN = ["flac", "ogg", "mp3"]
+CODECS_OUT = ["flac", "ogg", "mp3", "m4a"]
+
+
+def codec_missing(ext):
+    from audio_raytracing_studio_tpu_torch.utils import lavcio, mp3io
+
+    if ext == "mp3" and not (mp3io.encode_available() and mp3io.decode_available()):
+        return "libmp3lame / libmpg123 are not loadable here"
+    if ext == "m4a" and not lavcio.decode_available():
+        return "the FFmpeg libraries cannot be bound here"
+    return None
+
+
+@pytest.mark.parametrize("out_ext", CODECS_OUT)
+@pytest.mark.parametrize("in_ext", CODECS_IN)
+def test_codec_inputs_and_outputs_match_jax(files, monkeypatch, capsys, record_property,
+                                            in_ext, out_ext):
+    """A FLAC / Ogg / MP3 input rendered into a FLAC / Ogg / MP3 / M4A
+    output by both CLIs: the same exit code and metrics; FLAC outputs within
+    1 LSB (and byte-equal where the PCM16 is); lossy outputs of the same
+    shape within 40 dB SNR of the JAX file (the two renders differ by ~1e-6,
+    which moves a lossy encoder's quantization only here and there)."""
+    for ext in (in_ext, out_ext):
+        if codec_missing(ext):
+            pytest.skip(codec_missing(ext))
+    src = files / f"in.{in_ext}"
+    if not src.exists():
+        data, rate = wavio.read(files / "in_stereo.wav")
+        wavio.write_audio(src, data, rate)
+    argv = [src.name, "{out}", "--room-size", "40", "--layout", "Stereo", "--seed", "3",
+            "--json"]
+    t_out, j_out = f"tc_{in_ext}.{out_ext}", f"jc_{in_ext}.{out_ext}"
+    rc_t, cap_t = run(tcli.main, files, argv + ["--device", "cpu"], t_out, monkeypatch, capsys)
+    rc_j, cap_j = run(jcli.main, files, argv, j_out, monkeypatch, capsys)
+    assert rc_t == rc_j == 0, cap_t.err + cap_j.err
+    check_metrics(json.loads(cap_t.out)[0]["metrics"], json.loads(cap_j.out)[0]["metrics"],
+                  record_property)
+    (got, rate), (want, want_rate) = wavio.read(files / t_out), wavio.read(files / j_out)
+    assert rate == want_rate == RATE and got.shape == want.shape
+    if out_ext == "flac":
+        lsb = int(np.abs(np.rint(got * 32768.0) - np.rint(want * 32768.0)).max())
+        record_property("pcm16_lsb", lsb)
+        assert lsb <= 1
+        if lsb == 0:
+            assert (files / t_out).read_bytes() == (files / j_out).read_bytes()
+    else:
+        err = np.sum((got.astype(np.float64) - want) ** 2)
+        snr = float(10 * np.log10(np.sum(want.astype(np.float64) ** 2) / max(err, 1e-30)))
+        record_property("snr_vs_jax_db", snr)
+        assert snr >= 40.0

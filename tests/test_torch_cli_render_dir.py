@@ -145,12 +145,69 @@ def test_errors_match_jax(indir, tmp_path, capsys, case):
 
 
 def test_only_unsupported_files(tmp_path, capsys):
+    """A directory whose one file is a corrupt FLAC: both renderers skip it
+    with the same message and exit 1."""
     (tmp_path / "in").mkdir()
     (tmp_path / "in" / "x.flac").write_bytes(b"fLaC" + bytes(60))
-    rc, cap = run(tcli.main, [tmp_path / "in", tmp_path / "o", "--device", "cpu"], capsys)
-    assert rc == 1
-    assert "not supported by the PyTorch port yet" in cap.err
-    assert "no readable audio files" in cap.err
+    rc_t, cap_t = run(tcli.main, [tmp_path / "in", tmp_path / "o", "--device", "cpu"], capsys)
+    rc_j, cap_j = run(jcli.main, [tmp_path / "in", tmp_path / "oj"], capsys)
+    assert rc_t == rc_j == 1
+    assert cap_t.err == cap_j.err
+    assert "skipping x.flac: " in cap_t.err and "no readable audio files" in cap_t.err
+
+
+def snr_db(want, got):
+    err = np.sum((got.astype(np.float64) - want) ** 2)
+    return float(10 * np.log10(np.sum(want.astype(np.float64) ** 2) / max(err, 1e-30)))
+
+
+def test_mixed_codec_directory_matches_jax(tmp_path, capsys, record_property):
+    """WAV, FLAC, Ogg, AIFF and (where their libraries load) MP3 and M4A in
+    one directory, plus a corrupt FLAC: the same outputs (.flac and .ogg
+    kept, the rest as WAV), PCM16 within 1 LSB for the lossless ones, Ogg
+    within 40 dB SNR of the JAX file, metrics within 0.01 LU / dB, the same
+    skip message."""
+    from audio_raytracing_studio_tpu_torch.utils import lavcio, mp3io
+
+    d = tmp_path / "in"
+    d.mkdir()
+    wavio.write_audio(d / "a.wav", tone(0.3, 1, 1), RATE)
+    wavio.write_audio(d / "b.flac", tone(0.45, 2, 2), RATE)
+    wavio.write_audio(d / "c.ogg", tone(0.6, 2, 3), RATE)
+    aiff16(d / "d.aiff", tone(0.35, 2, 4), RATE)
+    names = ["a.wav", "b.flac", "c.ogg", "d.wav"]
+    if mp3io.encode_available() and mp3io.decode_available():
+        wavio.write_audio(d / "e.mp3", tone(0.5, 2, 5), RATE)
+        names.append("e.wav")
+    if lavcio.encode_available() and lavcio.decode_available():
+        wavio.write_audio(d / "f.m4a", tone(0.55, 1, 6), RATE)
+        names.append("f.wav")
+    (d / "g.flac").write_bytes(b"fLaC" + bytes(10))
+    argv = [d, None, "--batch", "2", "--layout", "Stereo", "--metrics", "--json", "--seed", "4"]
+    rc_t, cap_t = run(tcli.main, [a if a else tmp_path / "t" for a in argv]
+                      + ["--device", "cpu"], capsys)
+    rc_j, cap_j = run(jcli.main, [a if a else tmp_path / "j" for a in argv], capsys)
+    assert rc_t == rc_j == 0, cap_t.err + cap_j.err
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "j").iterdir()) == sorted(names)
+    for name in names:
+        (got, rate), (want, want_rate) = (wavio.read(tmp_path / w / name) for w in "tj")
+        assert rate == want_rate == RATE and got.shape == want.shape and got.shape[1] == 2
+        if name.endswith(".ogg"):
+            record_property(f"snr_db_{name}", snr_db(want, got))
+            assert snr_db(want, got) >= 40.0
+        else:
+            lsb = int(np.abs(np.rint(got * 32768.0) - np.rint(want * 32768.0)).max())
+            record_property(f"pcm16_lsb_{name}", lsb)
+            assert lsb <= 1
+    assert "skipping g.flac: invalid FLAC STREAMINFO block" in cap_t.err
+    assert cap_t.err == cap_j.err
+    res_t, res_j = json.loads(cap_t.out), json.loads(cap_j.out)
+    assert res_t["audio_seconds"] == res_j["audio_seconds"]
+    for a, b in zip(res_t["clips"], res_j["clips"]):
+        assert a["output"].replace(str(tmp_path / "t"), "") == \
+            b["output"].replace(str(tmp_path / "j"), "")
+        check_metrics(a["metrics"], b["metrics"], record_property)
 
 
 def test_no_fallback_without_a_card(indir, tmp_path, capsys):

@@ -5,9 +5,11 @@ The same request goes to both services: the status codes and the JSON keys
 must agree (the port's ``/v1/stats`` swaps the JAX runtime's two memory
 fields for its own five), and a rendered job's WAV must agree within 1 LSB
 of PCM16 plus float round-off (2e-5).  The port-only cases: the served WAV
-equals ``wavio.write`` of the direct ``render_batch`` bit for bit, FLAC and
-Ogg results are refused with 400, and ``UploadStore.allowed()`` is a
-read-only test (jobs ``touch()`` what they read).
+equals ``wavio.write`` of the direct ``render_batch`` bit for bit, and
+``UploadStore.allowed()`` is a read-only test (jobs ``touch()`` what they
+read).  FLAC and Ogg results and FLAC / Ogg / MP3 uploads go through both
+services: lossless results within 1 LSB of the JAX service's, Ogg within
+40 dB SNR (the two renders differ by ~1e-6).
 
 Every wait has a timeout.
 """
@@ -235,6 +237,22 @@ def test_main_without_a_card_exits_1(capsys):
     assert "CUDA" in capsys.readouterr().err
 
 
+def test_main_builds_the_host_codecs_before_serving(monkeypatch):
+    """``main`` runs ``wavio.warm_native`` before it serves, so g++ never
+    runs inside a request."""
+    calls = []
+    monkeypatch.setattr(port_service.wavio, "warm_native", lambda: calls.append("warm") or {})
+
+    def serve(self):
+        calls.append("serve")
+        self.start()  # serving in a thread, so the interrupt's stop() can shut it down
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(port_service.RenderHTTPService, "serve_forever", serve)
+    assert port_service.main(["--host", "127.0.0.1", "--port", "0", "--device", "cpu"]) == 0
+    assert calls == ["warm", "serve"]
+
+
 def test_preset_job(tmp_path):
     store = PresetStore(str(tmp_path))
     saved = RenderParams(diffusion=0.77, **PARAMS)
@@ -330,18 +348,72 @@ def test_content_length_contracts(staged_pair, length, code):
         assert "jobs_known" in call(http, "GET", "/v1/stats")[1]
 
 
+def served_audio(http, job_id, tmp_path, ext, tag):
+    """A finished job's result, decoded through a file of its format."""
+    code, blob = call(http, "GET", f"/v1/jobs/{job_id}/result")
+    assert code == 200 and isinstance(blob, bytes)
+    path = tmp_path / f"{tag}.{ext}"
+    path.write_bytes(blob)
+    return wavio.read(path)
+
+
+def snr_db(want, got):
+    err = np.sum((got.astype(np.float64) - want) ** 2)
+    return float(10 * np.log10(np.sum(want.astype(np.float64) ** 2) / max(err, 1e-30)))
+
+
 @pytest.mark.parametrize("fmt", ["flac", "ogg", "FLAC"])
-def test_flac_and_ogg_results_are_refused(staged_pair, fmt):
-    """The JAX service encodes them; the port has no such encoder yet and
-    says so at POST time with 400, before anything is queued."""
-    jax_http, port = staged_pair
-    before = call(port, "GET", "/v1/stats")[1]["jobs_known"]
-    code, err = post_job(port, {"input": upload(port, 2), "params": PARAMS, "format": fmt})
-    assert code == 400
-    assert err["error"] == str(wavio.not_supported(f".{fmt.lower()} output"))
-    assert call(port, "GET", "/v1/stats")[1]["jobs_known"] == before
-    assert post_job(jax_http, {"input": upload(jax_http, 2), "params": PARAMS,
-                               "format": fmt})[0] == 202
+def test_flac_and_ogg_results_are_refused(jax, port, tmp_path, record_property, fmt):
+    """A job asking for a FLAC or Ogg result (the name in any case) is
+    accepted by both services and served in that container: FLAC within 1
+    LSB of the JAX service's, Ogg of the same shape within 40 dB SNR; an
+    unknown format answers both with the same 400."""
+    got = {}
+    for name, http in (("jax", jax), ("port", port)):
+        code, job = post_job(http, {"input": upload(http, 2), "params": PARAMS, "seed": 8,
+                                    "format": fmt})
+        assert code == 202, job
+        assert poll_done(http, job["job_id"])["status"] == "done"
+        got[name] = served_audio(http, job["job_id"], tmp_path, fmt.lower(), name)
+    (a, rate), (b, want_rate) = got["port"], got["jax"]
+    assert rate == want_rate == RATE and a.shape == b.shape
+    if fmt.lower() == "flac":
+        lsb = int(np.abs(np.rint(a * 32768.0) - np.rint(b * 32768.0)).max())
+        record_property("pcm16_lsb", lsb)
+        assert lsb <= 1
+    else:
+        record_property("snr_db", snr_db(b, a))
+        assert snr_db(b, a) >= 40.0
+    errors = [post_job(http, {"input": upload(http, 2), "format": fmt + "x"})
+              for http in (jax, port)]
+    assert errors[0] == errors[1] and errors[0][0] == 400
+
+
+@pytest.mark.parametrize("ext", ["flac", "ogg", "mp3"])
+def test_compressed_uploads_match_the_jax_service(jax, port, tmp_path, record_property, ext):
+    """A FLAC, Ogg or MP3 upload decoded by each service on its request
+    thread and rendered: the WAV results within 1 LSB of each other."""
+    from audio_raytracing_studio_tpu_torch.utils import mp3io
+
+    if ext == "mp3" and not (mp3io.encode_available() and mp3io.decode_available()):
+        pytest.skip("libmp3lame / libmpg123 are not loadable here")
+    src = tmp_path / f"up.{ext}"
+    x = make_clip(6, 0.4)
+    wavio.write_audio(src, np.stack([x, 0.6 * x[::-1]], axis=1), RATE)
+    got = {}
+    for name, http in (("jax", jax), ("port", port)):
+        code, body = call(http, "POST", "/v1/upload", src.read_bytes(),
+                          {"X-Filename": src.name})
+        assert code == 200
+        code, job = post_job(http, {"input": body["path"], "params": PARAMS, "seed": 3})
+        assert code == 202, job
+        assert poll_done(http, job["job_id"])["status"] == "done"
+        got[name] = served_audio(http, job["job_id"], tmp_path, "wav", name)
+    (a, rate), (b, want_rate) = got["port"], got["jax"]
+    assert rate == want_rate and a.shape == b.shape
+    lsb = int(np.abs(np.rint(a * 32768.0) - np.rint(b * 32768.0)).max())
+    record_property("pcm16_lsb", lsb)
+    assert lsb <= 1
 
 
 def test_queued_result_is_409_and_cancel_is_410(staged_pair):

@@ -5,7 +5,14 @@ must end with no ``jax`` module loaded and no module of the JAX package
 own copies of ``config``, ``params``, ``metering.kweighting``, the float64
 oracle and the JAX-free ``app`` modules.  Nor does importing the port pull in
 matplotlib or PIL, which may be absent beside the card: the modules that draw
-import them inside the functions that do."""
+import them inside the functions that do.
+
+The codecs' host libraries are the port's own: no port module names a path
+under the JAX package's directory (which would let ctypes load a library
+built there), and importing every module builds nothing — the libraries are
+compiled from ``utils/_native/*.cc`` into ``_build/`` at first use."""
+
+import ast
 
 import os
 import pkgutil
@@ -39,7 +46,10 @@ def test_every_port_module_is_listed():
                      "parallel.streaming", "parallel.streaming_eq", "tools.bench_long",
                      "tools.profile_render", "utils.logging_config", "utils.watchdog",
                      "utils.profiling", "tools.bench", "tools.profile_exact",
-                     "tools.bench_serving", "tools.fuzz_campaign", "graft_entry"):
+                     "tools.bench_serving", "tools.fuzz_campaign", "graft_entry",
+                     "utils.flacio", "utils.vorbisio", "utils.vorbisenc", "utils.mp3io",
+                     "utils.lavcio", "utils._native_pcm", "utils._native_flac",
+                     "utils._native_vorbis", "utils._native_lavc", "tools.bench_codecs"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -60,6 +70,58 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def string_constants(tree):
+    """Every str literal of a module that is not a docstring."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_port_names_no_path_under_the_jax_package():
+    jax_dir = "audio_raytracing_studio_tpu"
+    bad = []
+    for root, _dirs, files in os.walk(os.path.dirname(port.__file__)):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in string_constants(tree):
+                v = node.value
+                if v == jax_dir or f"{jax_dir}/" in v or f"{jax_dir}\\" in v:
+                    bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno}: {v[:80]!r}")
+    assert not bad, bad
+
+
+def test_importing_every_module_builds_no_host_library(tmp_path):
+    """With ``kernels.BUILD_DIR`` pointed at an empty directory, importing
+    every port module leaves it empty: nothing is compiled at import."""
+    build = tmp_path / "_build"
+    code = (
+        "import importlib, pathlib, sys\n"
+        "from audio_raytracing_studio_tpu_torch.utils import kernels\n"
+        f"kernels.BUILD_DIR = pathlib.Path({str(build)!r})\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "built = sorted(p.name for p in kernels.BUILD_DIR.glob('*')) "
+        "if kernels.BUILD_DIR.exists() else []\n"
+        "print(built)\n"
+        "sys.exit(1 if built else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert not build.exists()
 
 
 def test_chip_smoke_imports_no_jax_and_needs_cuda():
