@@ -32,16 +32,22 @@ def fast_fft_length(n: int) -> int:
 
 
 def convolve_full(
-    signal: torch.Tensor, kernels: torch.Tensor, out_length: int
+    signal: torch.Tensor, kernels: torch.Tensor, out_length: int,
+    kernel_gains: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Linear convolution of each channel with each kernel.
 
     signal (B, C, N), kernels (B, K, L) → (B, K, C, out_length) float32.
+    ``kernel_gains``: optional (B, K, F) per-bin gains on each kernel's
+    spectrum at the fast grid (F = nfft//2 + 1) — a smooth filter, such as
+    the fast-mode air absorption, riding the convolution.
     """
     need = max(out_length, signal.shape[-1] + kernels.shape[-1] - 1)
     nfft = fast_fft_length(need)
     sig_f = torch.fft.rfft(signal, n=nfft)  # (B, C, F)
     ker_f = torch.fft.rfft(kernels, n=nfft)  # (B, K, F)
+    if kernel_gains is not None:
+        ker_f = ker_f * kernel_gains
     full = torch.fft.irfft(sig_f[:, None, :, :] * ker_f[:, :, None, :], n=nfft)
     return full[..., :out_length]
 

@@ -1,5 +1,5 @@
-"""Batched rendering on one device — port of ``render_batch`` in
-``audio_raytracing_studio_tpu/parallel/sharding.py`` (no mesh yet).
+"""Batched rendering on one device or over a device mesh — port of
+``render_batch`` in ``audio_raytracing_studio_tpu/parallel/sharding.py``.
 
 One batch renders as one pass of batched tensor ops: the fused RIR bank
 (the CUDA kernel on a GPU) synthesizes every clip's IRs — or one external
@@ -9,17 +9,25 @@ quantizes to PCM16 on the device.  Value-parameter sweeps (air, position,
 mix, EQ, levels) share a batch; shape-determining parameters (hall type,
 room size, z position, clip length, rate, layout) must match across it.
 
+Over a mesh (``device_mesh``) the batch splits into equal row blocks along
+the data axis and each shard runs that same pass over its rows, on its own
+device and stream — the counterpart of the JAX package's
+``_sharded_pallas_fn``, where each device runs the Pallas bank and the
+render over its batch shard.
+
 On a card nothing between the upload and the copy down makes the host wait:
 the clips and every small table go up through pinned buffers with
 asynchronous copies, the result comes down into pinned memory the same way,
-and an event marks its end — ``render_batch(async_results=True)`` returns a
-``fetch()`` that waits on that event alone (``_finalize_render``), which is
-what lets the serving batcher overlap one group's copies with the next
-group's render.  All of it is enqueued on the caller's current stream.
+and an event per shard marks its end — ``render_batch(async_results=True)``
+returns a ``fetch()`` that waits on those events alone (``_Download``),
+which is what lets the serving batcher overlap one group's copies with the
+next group's render.  Without a mesh all of it is enqueued on the caller's
+current stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,6 +40,7 @@ from ..ops import ir_synth
 from ..ops.ir_synth_cuda import fused_rir_bank
 from ..params import RenderParams, eq_enabled
 from ..utils.runtime import ensure_device
+from . import mesh as meshlib
 
 IR_BACKENDS = ("bank", "jnp")
 
@@ -130,49 +139,60 @@ def _stage_clips(audio: np.ndarray, dev: torch.device) -> torch.Tensor:
     return on_dev.expand(-1, 2, -1).contiguous()
 
 
-def _finalize_render(out: torch.Tensor, metrics: Optional[dict], async_results: bool):
+class _Download:
     """Device → host completion of an enqueued batch render — port of
     ``_finalize_render`` in the JAX package's ``parallel/sharding.py``.
 
-    ``out`` (B, channels, len_out) and the (B,) metric tensors are
-    transposed / stacked on the device and, on a card, copied into pinned
-    host buffers without waiting; an event recorded behind the copies marks
-    their end.  ``fetch()`` waits on that event only, then hands out the
-    (B, len_out, channels) array (a view of the pinned buffer, which lives
-    as long as the array) and one dict of floats per clip.  With
-    ``async_results`` the caller decides when to pay that wait, otherwise it
-    is paid here.  On the CPU there is nothing to wait for.
+    Each shard's rows ``out`` (b, channels, len_out) and (b,) metric tensors
+    are transposed / stacked on its device and, on a card, copied into its
+    rows of one page-locked host result without waiting; an event recorded
+    behind the copies on the shard's stream marks their end.  ``fetch()``
+    waits on those events only, then hands out the (B, len_out, channels)
+    array (a view of the page-locked buffer, which lives as long as the
+    array) and one dict of floats per clip.  On the CPU there is nothing to
+    wait for.
     """
-    batch = out.shape[0]
-    out = out.permute(0, 2, 1).contiguous()
-    table = keys = None
-    if metrics is not None:
-        keys = list(metrics)
-        table = torch.stack([metrics[k].reshape(batch) for k in keys])
-    done = None
-    if out.device.type == "cuda":
-        def down(t):
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            return host.copy_(t, non_blocking=True)
 
+    def __init__(self, batch: int):
+        self.batch = batch
+        self.out = self.table = self.keys = None
+        self.events = []
+
+    def put(self, row0: int, out: torch.Tensor, metrics: Optional[dict]) -> None:
+        """Enqueue the copy of rows ``row0 …`` on the current stream."""
+        rows = slice(row0, row0 + out.shape[0])
+        out = out.permute(0, 2, 1).contiguous()
+        table = None
+        if metrics is not None:
+            self.keys = list(metrics)
+            table = torch.stack([metrics[k].reshape(out.shape[0]) for k in self.keys], dim=1)
+        pinned = out.device.type == "cuda"
+        if self.out is None:
+            self.out = torch.empty((self.batch,) + tuple(out.shape[1:]), dtype=out.dtype,
+                                   pin_memory=pinned)
+            if table is not None:
+                self.table = torch.empty((self.batch, table.shape[1]), dtype=table.dtype,
+                                         pin_memory=pinned)
         # ``out`` and ``table`` were allocated on this stream and the copies
         # are enqueued on it, so the allocator may hand their memory on in
         # stream order as soon as these names go
-        out = down(out)
-        table = None if table is None else down(table)
-        done = torch.cuda.Event()
-        done.record()
+        self.out[rows].copy_(out, non_blocking=True)
+        if table is not None:
+            self.table[rows].copy_(table, non_blocking=True)
+        if pinned:
+            done = torch.cuda.Event()
+            done.record()
+            self.events.append(done)
 
-    def fetch():
-        if done is not None:
+    def fetch(self):
+        for done in self.events:
             done.synchronize()
-        result = out.numpy()
-        if table is None:
+        result = self.out.numpy()
+        if self.table is None:
             return result
-        rows = dict(zip(keys, table.tolist()))
-        return result, [{k: float(v[i]) for k, v in rows.items()} for i in range(batch)]
-
-    return fetch if async_results else fetch()
+        cols = self.table.T.tolist()
+        return result, [{k: float(col[i]) for k, col in zip(self.keys, cols)}
+                        for i in range(self.batch)]
 
 
 def render_batch(
@@ -180,7 +200,7 @@ def render_batch(
     rate: int,
     params: RenderParams | Sequence[RenderParams],
     seeds: Optional[Sequence[int]] = None,
-    device_mesh=None,
+    device_mesh: Optional[meshlib.Mesh] = None,
     with_metrics: bool = False,
     ir_backend: str = "bank",
     fast_filters: bool = False,
@@ -192,12 +212,20 @@ def render_batch(
     async_results: bool = False,
     device="cuda",
 ):
-    """Render a batch of clips (B, N) or (B, N, C) on one device.
+    """Render a batch of clips (B, N) or (B, N, C) on one device or over the
+    data axis of ``device_mesh``.
 
     ``params`` is one RenderParams (shared) or one per clip — all must agree
     on shape-determining fields; value fields may sweep freely.  External
     mode (every clip ``use_external_ir``): one ``external_ir`` (samples, 2)
     at ``external_ir_rate`` (default ``rate``) serves the whole batch.
+
+    ``device_mesh`` (``parallel.mesh.Mesh``): the batch splits into equal
+    row blocks over the mesh's data axis (B must divide by it); each shard
+    stages its rows, synthesizes their IRs (the bank once per shard),
+    renders, meters and quantizes them on its own device and stream, and
+    copies them into its rows of the host result.  The mesh's devices must
+    be of ``device``'s type.
 
     ``clip_lengths``: per-clip TRUE input lengths of a zero-padded batch.
     Metrics then measure each clip's true output span
@@ -214,17 +242,18 @@ def render_batch(
 
     ``async_results=True`` returns a zero-argument ``fetch()`` instead of the
     result: the whole render and its copy to the host are already enqueued
-    on the current stream and no host thread has waited for them; ``fetch()``
-    waits for the copy and returns what the synchronous call returns.
+    (on the current stream, or on the shards' streams) and no host thread
+    has waited for them; ``fetch()`` waits for the copies and returns what
+    the synchronous call returns.
 
     Returns (B, len_out, channels) float32 (int16 with ``pcm16_output``) —
     plus a list of per-clip metric dicts with ``with_metrics``.
     """
-    if device_mesh is not None:
-        raise NotImplementedError("multi-device rendering is not ported yet")
     if ir_backend not in IR_BACKENDS:
         raise ValueError(f"ir_backend must be one of {IR_BACKENDS}, got {ir_backend!r}")
     dev = ensure_device(device)
+    if device_mesh is not None:
+        axis = meshlib.check_mesh(device_mesh, dev).axis(meshlib.DATA_AXIS)
 
     audio = np.asarray(audio, dtype=np.float32)
     if audio.ndim == 2:
@@ -237,9 +266,8 @@ def render_batch(
         raise ValueError(f"real_batch {real_batch} outside [1, {batch}]")
     if clip_lengths is not None and len(clip_lengths) != batch:
         raise ValueError(f"{len(clip_lengths)} clip_lengths for batch of {batch}")
-
+    n_real = batch if real_batch is None else real_batch
     n_in = audio.shape[1]
-    audio_t = _stage_clips(audio, dev)
 
     def true_lengths(ir_length: int):
         """Per-clip true output lengths, or None for an unpadded batch."""
@@ -257,6 +285,9 @@ def render_batch(
             return None
         return true_lengths(ir_length)
 
+    def rows_of(values, rows: slice):
+        return None if values is None else values[rows]
+
     if any(p.use_external_ir for p in param_list):
         if not all(p.use_external_ir for p in param_list):
             raise ValueError("mixed internal/external modes in one batch")
@@ -267,15 +298,19 @@ def render_batch(
                 "external-IR batch requires one target_layout for all clips "
                 "(shape-determining); bucket your batch by layout"
             )
-        ir = pipeline.prepare_external_ir(external_ir, external_ir_rate or rate, rate, dev)
-        ir_length = ir.shape[0]
-        spec = pipeline.external_spec(param_list[0], rate, n_in, ir_length)._replace(
-            eq_on=any(eq_enabled(p.bass_gain, p.treble_gain) for p in param_list)
-        )
-        mix = pipeline.MixScalars.stack(
-            [pipeline._mix_scalars(p, 1.0, 1.0) for p in param_list], dev
-        )
-        out = pipeline.external_graph(audio_t, ir.T, mix, spec, eq_lengths(ir_length))
+        eq_on = any(eq_enabled(p.bass_gain, p.treble_gain) for p in param_list)
+
+        def render_rows(rows: slice, here: torch.device):
+            ir = pipeline.prepare_external_ir(external_ir, external_ir_rate or rate, rate, here)
+            ir_length = ir.shape[0]
+            spec = pipeline.external_spec(param_list[0], rate, n_in, ir_length)._replace(
+                eq_on=eq_on)
+            mix = pipeline.MixScalars.stack(
+                [pipeline._mix_scalars(p, 1.0, 1.0) for p in param_list[rows]], here
+            )
+            out = pipeline.external_graph(_stage_clips(audio[rows], here), ir.T, mix, spec,
+                                          rows_of(eq_lengths(ir_length), rows))
+            return out, rows_of(true_lengths(ir_length), rows)
     else:
         setups = [
             pipeline.build_internal_setup(p, rate, n_in, fast_filters=fast_filters)
@@ -310,21 +345,38 @@ def render_batch(
             seeds = range(batch)
         if len(seeds) != batch:
             raise ValueError(f"{len(seeds)} seeds for batch of {batch}")
+        seeds32 = ir_synth.seeds_to_int32(seeds)
         ir_length = spec.ir_length
-        out = _batched_internal(
-            audio_t,
-            ir_synth.to_device(ir_synth.seeds_to_int32(seeds), dev),
-            ir_synth.IRScalars.stack([s.ir_scalars for s in setups]),
-            pipeline.MixScalars.stack([s.mix_scalars for s in setups], dev),
-            shape0,
-            spec,
-            ir_backend=ir_backend,
-            eq_lengths=eq_lengths(ir_length),
-        )
 
-    valid_lens = true_lengths(ir_length)
-    if real_batch is not None:
-        out = out[:real_batch]
-        valid_lens = None if valid_lens is None else valid_lens[:real_batch]
-    out, metrics = _meter_and_quantize(out, int(rate), with_metrics, pcm16_output, valid_lens)
-    return _finalize_render(out, metrics, async_results)
+        def render_rows(rows: slice, here: torch.device):
+            out = _batched_internal(
+                _stage_clips(audio[rows], here),
+                ir_synth.to_device(seeds32[rows], here),
+                ir_synth.IRScalars.stack([s.ir_scalars for s in setups[rows]]),
+                pipeline.MixScalars.stack([s.mix_scalars for s in setups[rows]], here),
+                shape0,
+                spec,
+                ir_backend=ir_backend,
+                eq_lengths=rows_of(eq_lengths(ir_length), rows),
+            )
+            return out, rows_of(true_lengths(ir_length), rows)
+
+    if device_mesh is None:
+        shards = [(slice(0, batch), contextlib.nullcontext(dev))]
+    else:
+        shards = [(rows, axis.on(k))
+                  for k, rows in enumerate(meshlib.shard_rows(device_mesh, batch))]
+    download = _Download(n_real)
+    for rows, on_shard in shards:
+        with on_shard as here:
+            out, valid_lens = render_rows(rows, here)
+            keep = min(rows.stop, n_real) - rows.start
+            if keep <= 0:  # pad rows only: rendered, never metered or copied
+                continue
+            if keep < out.shape[0]:
+                out = out[:keep]
+                valid_lens = rows_of(valid_lens, slice(0, keep))
+            out, metrics = _meter_and_quantize(out, int(rate), with_metrics, pcm16_output,
+                                               valid_lens)
+            download.put(rows.start, out, metrics)
+    return download.fetch if async_results else download.fetch()

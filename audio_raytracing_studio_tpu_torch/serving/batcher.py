@@ -46,7 +46,11 @@ In this eager runtime the half-second bucket and the power-of-two batch
 sizes are batching keys that bound the cuFFT plan set and the allocator's
 block sizes; nothing is compiled per shape.
 
-Not ported yet: meshes (``device_mesh`` raises).
+Over a device mesh (``device_mesh``) each group's padded batch is rounded
+up to a multiple of the mesh's data axis and ``render_batch`` splits it
+over the shards: the group then spans every shard's stream, and its
+page-locked staging stays referenced until ``fetch()`` has waited for every
+shard's copies.
 """
 
 from __future__ import annotations
@@ -67,6 +71,7 @@ import numpy as np
 import torch
 
 from ..models import pipeline
+from ..parallel import mesh as meshlib
 from ..parallel import sharding
 from ..params import RenderParams
 from ..utils.runtime import ensure_device
@@ -182,8 +187,13 @@ class RenderService:
                   timing produces; pad rows never come down.
     max_wait_ms:  dispatch a partial group once its oldest job has waited
                   this long (latency bound under light load).
-    device_mesh:  not ported (multi-device rendering); anything but None
-                  raises, as ``render_batch`` does.
+    device_mesh:  optional ``parallel.mesh.Mesh`` — the padded batch also
+                  rounds up to a multiple of its data axis and renders
+                  split over the shards (``render_batch(device_mesh=...)``);
+                  its devices must be of ``device``'s type.  A mesh's
+                  shards have one stream each, which every group shares:
+                  with a mesh, successive groups overlap across shards, not
+                  across the service's own streams.
     ir_backend:   "bank" (the fused RIR bank: the CUDA kernels on a card) or
                   "jnp" (the plain per-clip ``synthesize``, for comparison).
     fast_filters: conv-grid air absorption (≤2e-4 deviation) instead of the
@@ -240,13 +250,14 @@ class RenderService:
             raise ValueError(
                 f"pipeline_depth must be >= 1 (got {pipeline_depth})"
             )
-        if device_mesh is not None:
-            raise NotImplementedError("multi-device rendering is not ported yet")
         if ir_backend not in sharding.IR_BACKENDS:
             raise ValueError(
                 f"ir_backend must be one of {sharding.IR_BACKENDS}, got {ir_backend!r}"
             )
         self.device = ensure_device(device)  # no card → raises before any job
+        if device_mesh is not None:
+            meshlib.check_mesh(device_mesh, self.device)
+        self.device_mesh = device_mesh
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1000.0
         self.ir_backend = ir_backend
@@ -264,8 +275,11 @@ class RenderService:
             self._streams = [
                 torch.cuda.Stream(self.device) for _ in range(self.pipeline_depth)
             ]
-            plans = _plan_cache(self.device)
-            plans.max_size = min(int(plans.max_size), FFT_PLAN_CACHE_MAX)
+            devices = {self.device} if device_mesh is None else {
+                d for row in device_mesh.devices for d in row}
+            for dev in devices:
+                plans = _plan_cache(dev)
+                plans.max_size = min(int(plans.max_size), FFT_PLAN_CACHE_MAX)
         self._groups_dispatched = 0  # picks the next group's stream
         self._q: "queue.Queue" = queue.Queue()
         # dispatched groups whose results are still coming down; the bounded
@@ -646,10 +660,16 @@ class RenderService:
 
     def bucket_sizes(self) -> List[int]:
         """The batch sizes this service dispatches at: powers of two capped
-        at ``max_batch`` — the fixed points of ``_batch_pad`` (every bucket
-        pads to itself).  This is the set ``warm()`` prepares."""
+        at ``max_batch``, each rounded up to a multiple of the mesh's data
+        axis — the fixed points of ``_batch_pad`` (every bucket pads to
+        itself, also when the data axis is not a power of two).  This is the
+        set ``warm()`` prepares."""
         raw = {1 << k for k in range(self.max_batch.bit_length())}
-        return sorted({b for b in raw if b <= self.max_batch} | {self.max_batch})
+        raw = {b for b in raw if b <= self.max_batch} | {self.max_batch}
+        if self.device_mesh is not None:
+            d = self.device_mesh.shape[meshlib.DATA_AXIS]
+            raw = {b + (-b) % d for b in raw}
+        return sorted(raw)
 
     def warm(
         self, job: RenderJob, sizes: Optional[List[int]] = None
@@ -690,6 +710,8 @@ class RenderService:
             for stream in self._streams:
                 if stream is not None:
                     stream.synchronize()
+            if self.device_mesh is not None:
+                self.device_mesh.synchronize()
             del fetches
         return sizes
 
@@ -702,8 +724,9 @@ class RenderService:
         ``max_batch`` (e.g. {1,2,4,8,16,32,48} for max_batch=48): O(log
         max_batch) sizes in all, at most 2× zero-pad upload and render
         waste, and pad rows never come down — render_batch drops them on
-        the device (``real_batch``).  Pads to the smallest
-        ``bucket_sizes()`` entry ≥ batch, so every bucket is a fixed point.
+        the device (``real_batch``).  A mesh's data axis still divides the
+        result.  Pads to the smallest ``bucket_sizes()`` entry ≥ batch, so
+        every bucket is a fixed point (d=3: bucket 3 stays 3, not 6).
         """
         for b in self.bucket_sizes():
             if b >= batch:
@@ -712,7 +735,8 @@ class RenderService:
 
     def _render_group(self, items: List[_Item], stream=None):
         """Stack one group and enqueue its upload, render and copy down on
-        ``stream`` (the current stream when None).  Returns ``(fetch,
+        ``stream`` (the current stream when None; with a mesh, on the
+        shards' streams).  Returns ``(fetch,
         uploaded_bytes)``; the zero-argument ``fetch()`` waits for the copy
         down and produces ``(outs, metrics)`` — on the completer thread in
         pipelined mode."""
@@ -743,6 +767,7 @@ class RenderService:
 
         kwargs: Dict[str, Any] = dict(
             seeds=seeds,
+            device_mesh=self.device_mesh,
             with_metrics=with_metrics,
             fast_filters=self.fast_filters,
             pcm16_output=self.pcm16_output,

@@ -22,9 +22,13 @@ Modes (each prints one JSON line; ``--matrix`` one per arm and a summary):
   (backpressure), RSS at start/peak/end, the page-locked MB and the cuFFT
   plans from ``stats()``.
 - ``--matrix --soak S``: the soak per arm of the service configuration:
-  ``bank+extir`` (the CUDA bank, external-IR jobs in the mix) and ``jnp``
-  (``ir_backend="jnp"``, the plain IR path).  The JAX tool's mesh arms are
-  listed as skipped: device meshes are ROADMAP item 16.
+  ``bank+extir`` (the CUDA bank, external-IR jobs in the mix), ``jnp``
+  (``ir_backend="jnp"``, the plain IR path), and over a data mesh of
+  ``--mesh-devices`` shards ``mesh`` (the plain IR path) and ``bank-mesh``
+  (the bank once per shard).  The mesh takes the visible devices of
+  ``--device``'s type in turn, so ``--mesh-devices 4`` on one card is
+  ``[cuda:0] * 4``; with fewer than two shards the mesh arms are listed as
+  skipped, as the JAX tool skips them on one device.
 - ``--http --soak S``: every job runs the client's whole lifecycle over
   real HTTP against ``RenderHTTPService`` on 127.0.0.1 (upload, job POST,
   status polls, result download).  Uploads and results cycle through
@@ -66,7 +70,7 @@ import numpy as np
 BURST_METRIC = "serving realtime factor (audio-sec/sec, end-to-end jobs)"
 SOAK_METRIC = "serving soak (Poisson arrivals, mixed lengths/metrics)"
 HTTP_METRIC = "serving soak over HTTP (the line's formats, full job lifecycle)"
-MESH_SKIPPED = "device meshes are ROADMAP item 16"
+MESH_SKIPPED = "fewer than 2 mesh shards (--mesh-devices)"
 HTTP_FORMATS = ["wav", "flac", "ogg"]  # uploads and results
 HTTP_SPLIT = ("upload_s", "submit_s", "wait_s", "result_s")
 
@@ -171,10 +175,28 @@ def soak(args) -> int:
     return 1 if out["failed"] else 0
 
 
+def mesh_devices(device: str, count: int) -> list:
+    """``count`` devices of ``device``'s type, the visible ones taken in turn
+    (one card stands in for several)."""
+    import torch
+
+    kind = torch.device(device).type
+    visible = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+               if kind == "cuda" else [torch.device("cpu")])
+    return [visible[i % len(visible)] for i in range(count)]
+
+
 def matrix(args) -> int:
     """Soak-matrix mode: --soak seconds per arm of the service configuration,
     one JSON line per arm plus a summary."""
     arms = [("bank+extir", {}, args.extir_every or 5), ("jnp", {"ir_backend": "jnp"}, 0)]
+    if args.mesh_devices >= 2:
+        from ..parallel import mesh as meshlib
+
+        m = meshlib.make_mesh(data=args.mesh_devices,
+                              devices=mesh_devices(args.device, args.mesh_devices))
+        arms.append(("mesh", {"device_mesh": m, "ir_backend": "jnp"}, 0))
+        arms.append(("bank-mesh", {"device_mesh": m}, 0))
     rc = 0
     summary = []
     for label, kw, extir in arms:
@@ -191,9 +213,10 @@ def matrix(args) -> int:
             "p95_s": out["latency_p95_s"],
             "rss_end_mb": out["rss_end_mb"],
         })
-    for label in ("mesh", "bank-mesh"):
-        print(f"--- arm: {label}: skipped: {MESH_SKIPPED} ---", file=sys.stderr)
-        summary.append({"arm": label, "skipped": MESH_SKIPPED})
+    if args.mesh_devices < 2:
+        for label in ("mesh", "bank-mesh"):
+            print(f"--- arm: {label}: skipped: {MESH_SKIPPED} ---", file=sys.stderr)
+            summary.append({"arm": label, "skipped": MESH_SKIPPED})
     from .bench_long import card
 
     print(json.dumps({"metric": "serving soak matrix", "arms": summary,
@@ -775,7 +798,11 @@ def main(argv=None) -> int:
                     help="HTTP soak: concurrent client lifecycles")
     ap.add_argument("--matrix", action="store_true",
                     help="run --soak seconds per arm of the service configuration "
-                         "(bank with external-IR jobs, the plain IR path)")
+                         "(bank with external-IR jobs, the plain IR path, both over a "
+                         "data mesh)")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="matrix: shards of the mesh arms' data mesh (default: the visible "
+                         "cards, 1 on the CPU)")
     ap.add_argument("--extir-every", type=int, default=0,
                     help="soak: every Nth job renders through a shared external IR "
                          "(0 disables; the matrix's first arm defaults to 5)")
@@ -793,6 +820,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     from .bench_long import needs_card
 
+    if args.mesh_devices is None:
+        import torch
+
+        args.mesh_devices = (torch.cuda.device_count()
+                             if torch.device(args.device).type == "cuda" else 1)
     if args.matrix and args.soak <= 0:
         ap.error("--matrix needs --soak SECONDS (per-arm duration)")
     if args.http and args.soak <= 0:

@@ -30,7 +30,11 @@ Drives the port's paths at full size and checks them:
   ``tools.fuzz_campaign``, each through its ``main`` in this process;
 - the codecs — FLAC, Ogg/Vorbis, MP3 and AAC / M4A (host code) on their way
   to and from the card through ``cli.render``, ``cli.render_dir`` and the
-  HTTP job API, and ``tools.bench_codecs``.
+  HTTP job API, and ``tools.bench_codecs``;
+- the device mesh, one card standing in for N devices
+  (``make_mesh(devices=["cuda:0"] * N)``): the data-parallel
+  ``render_batch`` and ``RenderService`` over it, the sequence-parallel
+  ``render_long``, the partitioned convolution and both dry runs.
 
 Phases, one line each:
 
@@ -169,7 +173,7 @@ Phases, one line each:
    the plain IR path's renders within 1e-4); 10d ``tools.bench_serving``:
    the burst of 48 × 60 s, ``--soak 15``, ``--matrix --soak 8``, ``--http
    --soak 15 --http-formats wav`` (WAV uploads and results at 2 jobs/s) and
-   ``--http --soak 60 --arrival-rate 0.5`` (WAV, FLAC and Ogg uploads and
+   ``--http --soak 20 --arrival-rate 0.5`` (WAV, FLAC and Ogg uploads and
    results, each codec on every clip length; each job's wall split into
    upload, job POST, wait and result GET, the slowest jobs printed), each
    with no failed job (every result of its true length and not silent); 10e ``tools.fuzz_campaign`` parity 6, batch 3 and
@@ -198,12 +202,32 @@ Phases, one line each:
    format answers 400.  11e ``tools.bench_codecs --lengths 60`` (its lines
    printed) and the fuzz ``codec`` and ``encode`` modes, 12 cases each, no
    finding.  The bank is held to its plain version at every (shape, batch)
-   the phase called it with.  ``[11 timing]``.
+   the phase called it with.  ``[11 timing]``;
+12. the device mesh on one card standing in for N devices (a line says so;
+   N shards of one card are not N cards).  12a the data-parallel
+   ``render_batch`` of B=48 × 60 s (Room, Stereo, EQ 1.0, bank) over
+   ``make_mesh(data=4)``, fast and exact, against the meshless render (≤ 1e-6;
+   the bank launched once per shard), then metered + PCM16 + padded clips with
+   EQ on (1 LSB, metrics ≤ 1e-5), each timed against the meshless wall in
+   turns; 12b ``render_long`` of 60 s at 48 kHz (5.1, room 120, bass 1.6,
+   treble 0.7, seed 3, metered — ``tests/test_long_render.py``'s render-scale
+   case) at block 8 and 4, and 7.1 at block 4, against the single-shot exact
+   ``render`` (≤ 1e-3) and the single-device meter (0.02 LU, 1e-3 dB), with
+   walls and peak memory (every shard on the one card); 12c
+   ``partitioned_convolve`` of (2, 2,951,999) with the main path's IR pair at
+   block 4 against ``convolve_full`` (≤ 1e-5 of the peak); 12d
+   ``RenderService(device_mesh=data 4)`` on a burst of 48 × 60 s jobs, each
+   bit-equal to its row of the direct mesh ``render_batch``, then
+   ``tools.bench_serving --matrix --soak 5 --mesh-devices 4`` with its mesh
+   arms; 12e ``graft_entry.dryrun_multichip(8, devices=["cuda:0"] * 8)`` and
+   ``tools.dryrun_distributed --device cuda`` (two gloo processes on the one
+   card).  The bank is held to its plain version at every (shape, batch) the
+   phase called it with.  ``[12 timing]``.
 
 Development options (a run with either prints no result line):
-``--only 8``, ``--only 9``, ``--only 10`` or ``--only 11`` runs phases 1, 2
-and that phase; ``--rehearse-cpu SECONDS`` walks phases 8, 9, 10 and 11's
-control flow on the CPU at a short clip length.
+``--only 8`` … ``--only 12`` runs phases 1, 2 and that phase;
+``--rehearse-cpu SECONDS`` walks phases 8 to 12's control flow on the CPU at
+a short clip length.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -247,6 +271,14 @@ STREAM_TOL = 1e-4  # exact streaming vs single-shot (tests/test_streaming.py:254
 FAST_AIR_TOL = 1e-3  # fast streaming vs single-shot exact: the fast-air contract
 INVARIANCE_TOL = 1e-5  # two chunk sizes: the overlap-add is exact, float32 round-off only
 CARD_CPU_TOL = 2e-5  # a 90 s streaming render, card vs CPU
+MESH_SHARDS = 4  # phase 12a / 12d: make_mesh(data=4) on one card
+LONG_MESH_S = 60.0  # phase 12b: the JAX package's render-scale long render (tests/test_long_render.py)
+MESH_TOL = 1e-6  # 12a mesh vs meshless: a shard's cuFFT plans are made for B/4 rows, not B
+MESH_METRIC_TOL = 1e-5  # 12a metrics, LU / dB
+LONG_TOL = 1e-3  # 12b vs the single-shot exact render: block-grid air and the distributed EQ
+LONG_LU_TOL = 0.02  # 12b sharded meter vs the single-device meter (tests/test_long_render.py)
+LONG_DB_TOL = 1e-3  # 12b peak and RMS, dB
+CONV_TOL = 1e-5  # 12c partitioned vs whole convolution, relative to the peak (float32 FFTs of 2^19..2^22)
 
 
 class SmokeFailure(RuntimeError):
@@ -2356,7 +2388,7 @@ def tooling_phase(np, torch, bank, work: str, rtf: dict, device: str = "cuda",
     whole render); 10c ``tools.bench_long bank --batch 16`` (the bank's and
     the plain IR path's renders agree); 10d ``tools.bench_serving``: the
     burst, ``--soak 15``, ``--matrix --soak 8``, the WAV-only ``--http
-    --soak 15`` at 2 jobs/s and the mixed-codec ``--http --soak 60
+    --soak 15`` at 2 jobs/s and the mixed-codec ``--http --soak 20
     --arrival-rate 0.5``, each with no failed job (every result of its true
     length and not silent);
     10e ``tools.fuzz_campaign`` parity 6, batch 3 and streaming 3 with no
@@ -2378,12 +2410,12 @@ def tooling_phase(np, torch, bank, work: str, rtf: dict, device: str = "cuda",
         fuzz = (("parity", "2"), ("batch", "2"), ("streaming", "2"))
     else:
         bench_args, serve_args = [], []
-        soaks = ("15", "8", "15", "60")
+        soaks = ("15", "8", "15", "20")
         # the mixed-codec HTTP soak's FLAC / Ogg uploads and results are host
         # codec work on the request threads under one GIL: at the tool's 2
         # jobs/s it falls behind on an H100 machine without the FFmpeg
-        # libraries (PERF.md section 6), so it runs at 0.5 jobs/s for 60 s
-        # (about 30 jobs) beside the WAV-only soak at 2 jobs/s; its line
+        # libraries (PERF.md section 6), so it runs at 0.5 jobs/s for 20 s
+        # (about 10 jobs) beside the WAV-only soak at 2 jobs/s; its line
         # splits each job's wall, so what the codecs cost every job shows
         http_rate = ["--arrival-rate", "0.5"]
         fuzz = (("parity", "6"), ("batch", "3"), ("streaming", "3"))
@@ -2790,11 +2822,300 @@ def codec_phase(np, torch, bank, work: str, device: str = "cuda",
     return out
 
 
+def gaps(got: list, want: list) -> float:
+    """The largest |Δ| of any metric over two lists of per-clip metric dicts
+    (equal infinities count as 0)."""
+    return max((0.0 if float(g[k]) == float(w[k]) else abs(float(g[k]) - float(w[k])))
+               for g, w in zip(got, want) for k in g)
+
+
+def mesh_phase(np, torch, bank, work: str, device: str = "cuda", batch: int = BATCH,
+               seconds: float = DURATION_S, long_seconds: float = LONG_MESH_S,
+               small: bool = False) -> dict:
+    """Phase 12: the device mesh, one card standing in for N devices
+    (``make_mesh(devices=["cuda:0"] * N)``; N shards of one card are not N
+    cards).  12a the data-parallel ``render_batch`` over data=4 against the
+    meshless one (fast, exact, then metered + PCM16 + padded EQ-on clips);
+    12b ``render_long`` at block 8 and 4 (5.1) and block 4 (7.1) against the
+    single-shot exact ``render`` and the single-device meter; 12c
+    ``partitioned_convolve`` at block 4 against ``convolve_full``; 12d
+    ``RenderService(device_mesh=...)`` on a burst, each job against its row of
+    the direct mesh render, then ``bench_serving --matrix`` with its mesh
+    arms; 12e ``graft_entry.dryrun_multichip(8)`` and the two-process
+    ``tools.dryrun_distributed``.  ``small`` shrinks the tool runs for the
+    CPU rehearsal.  Returns the timings, the bank calls counted over the
+    phase (before the holds, which do not count) and the bank's worst error
+    against its plain version over every (shape, batch) the phase called it
+    with."""
+    from audio_raytracing_studio_tpu_torch import RenderParams, graft_entry
+    from audio_raytracing_studio_tpu_torch.metering import loudness
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.ops import convolution, ir_synth
+    from audio_raytracing_studio_tpu_torch.parallel import long_render, mesh, partitioned_conv
+    from audio_raytracing_studio_tpu_torch.parallel import sharding
+    from audio_raytracing_studio_tpu_torch.serving import RenderJob, RenderService
+    from audio_raytracing_studio_tpu_torch.tools import bench_serving
+    from audio_raytracing_studio_tpu_torch.tools.profile_render import bench_clips
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    shard_dev = "cuda:0" if on_card else "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def mesh_of(data=1, block=1):
+        return mesh.make_mesh(data=data, block=block, devices=[shard_dev] * (data * block))
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        return result, time.perf_counter() - t0
+
+    print(f"[12 mesh] one {'card' if on_card else 'CPU'} stands in for N devices: "
+          f"make_mesh(devices=[{shard_dev!r}] * N); N shards of one card are not N cards, "
+          "so no time here is a multi-card time", flush=True)
+    timing = {"shards": MESH_SHARDS}
+    walls = {}
+    t_phase = time.perf_counter()
+    with BankRecorder(bank) as recorder:
+        # ---------------- 12a: the data-parallel batch ----------------
+        t_step = time.perf_counter()
+        clips = bench_clips(batch, seconds)
+        data_mesh = mesh_of(data=MESH_SHARDS)
+        p = RenderParams(target_layout="Stereo")
+        for fast in (True, False):
+            mode = "fast" if fast else "exact"
+            kw = dict(fast_filters=fast, device=dev)
+            # in turns: meshless, mesh, mesh, meshless, meshless — the first
+            # call on each side pays its plans, and the caching allocator
+            # reuses a block only on the stream it was made for, so the first
+            # meshless call after the mesh's (shard streams) pays fresh
+            # device memory again
+            want, w1 = timed(lambda: sharding.render_batch(clips, RATE, p, **kw))
+            before = bank.launch_count
+            got, m1 = timed(lambda: sharding.render_batch(clips, RATE, p, device_mesh=data_mesh,
+                                                          **kw))
+            check(not on_card or bank.launch_count == before + MESH_SHARDS,
+                  f"12a {mode}: {bank.launch_count - before} bank calls for {MESH_SHARDS} shards")
+            err = float(np.abs(got - want).max())
+            check(got.shape == want.shape and err <= MESH_TOL,
+                  f"12a {mode}: mesh vs meshless {got.shape} {want.shape} max-abs {err}")
+            del got
+            _, m2 = timed(lambda: sharding.render_batch(clips, RATE, p, device_mesh=data_mesh,
+                                                        **kw))
+            _, w2 = timed(lambda: sharding.render_batch(clips, RATE, p, **kw))
+            _, w3 = timed(lambda: sharding.render_batch(clips, RATE, p, **kw))
+            del want
+            timing[f"12a_{mode}"] = {"max_abs": err, "mesh_s": [m1, m2],
+                                     "meshless_s": [w1, w2, w3]}
+            print(f"[12a data-parallel] {mode}: B={batch} x {seconds:g} s over data="
+                  f"{MESH_SHARDS}: mesh vs meshless max-abs {err:.3e} (tol {MESH_TOL}); "
+                  f"walls in turns meshless {w1:.3f}, mesh {m1:.3f} / {m2:.3f}, meshless "
+                  f"{w2:.3f} / {w3:.3f} s", flush=True)
+        n_in = clips.shape[1]
+        lengths = [n_in - int(0.2 * n_in * b / (batch - 1)) for b in range(batch)]
+        padded = clips.copy()
+        for b, tl in enumerate(lengths):
+            padded[b, tl:] = 0.0
+        p_eq = RenderParams(target_layout="Stereo", bass_gain=1.6, treble_gain=0.7)
+        kw = dict(with_metrics=True, pcm16_output=True, clip_lengths=lengths, device=dev)
+        # in turns: meshless (one cuFFT plan pair per new true length), mesh, meshless
+        (want_q, want_m), w1 = timed(lambda: sharding.render_batch(padded, RATE, p_eq, **kw))
+        (q, metrics), m1 = timed(lambda: sharding.render_batch(padded, RATE, p_eq,
+                                                               device_mesh=data_mesh, **kw))
+        _, w2 = timed(lambda: sharding.render_batch(padded, RATE, p_eq, **kw))
+        lsb = int(np.abs(q.astype(np.int32) - want_q.astype(np.int32)).max())
+        mgap = gaps(metrics, want_m)
+        check(q.dtype == np.int16 and q.shape == want_q.shape and lsb <= 1,
+              f"12a metered: PCM16 {q.dtype} {q.shape} differs by {lsb} LSB")
+        check(mgap <= MESH_METRIC_TOL, f"12a metered: metrics differ by {mgap}")
+        del q, want_q
+        timing["12a_metered"] = {"lsb": lsb, "metrics_gap": mgap, "mesh_s": m1,
+                                 "meshless_s": [w1, w2]}
+        print(f"[12a data-parallel] metered + PCM16 + padded EQ (bass 1.6, treble 0.7): "
+              f"{lsb} LSB, metrics within {mgap:.2e} (tol 1 LSB, {MESH_METRIC_TOL}); walls in "
+              f"turns meshless {w1:.3f}, mesh {m1:.3f}, meshless {w2:.3f} s", flush=True)
+        walls["12a"] = time.perf_counter() - t_step
+
+        # ---------------- 12b: the sequence-parallel long render ----------------
+        t_step = time.perf_counter()
+        rng = np.random.default_rng(3)
+        t = np.arange(int(long_seconds * RATE)) / RATE
+        x = (0.4 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.standard_normal(len(t))
+             ).astype(np.float32)
+        singles = {}
+        for label, layout, blocks in (("5.1 block 8", "5.1 (Standard)", 8),
+                                      ("5.1 block 4", "5.1 (Standard)", 4),
+                                      ("7.1 block 4", "7.1 (Surround)", 4)):
+            p_long = RenderParams(target_layout=layout, room_size=120.0, bass_gain=1.6,
+                                  treble_gain=0.7)
+            if layout not in singles:
+                singles[layout] = timed(lambda: pipeline.render(
+                    x, RATE, p_long, seed=3, fast_filters=False, device=dev))
+            exact, single_s = singles[layout]
+            block_mesh = mesh_of(block=blocks)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            (out, met), wall = timed(lambda: long_render.render_long(
+                x, RATE, p_long, block_mesh, seed=3, with_metrics=True))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+            _, again = timed(lambda: long_render.render_long(x, RATE, p_long, block_mesh,
+                                                             seed=3, with_metrics=True))
+            err = float(np.abs(out - exact).max())
+            check(out.shape == exact.shape and err <= LONG_TOL,
+                  f"12b {label}: {out.shape} vs {exact.shape}, max-abs {err} > {LONG_TOL}")
+            ref = loudness.audio_metrics(torch.from_numpy(np.ascontiguousarray(out.T)).to(dev),
+                                         RATE)
+            ref = {k: float(v) for k, v in ref.items()}
+            d = [abs(met[k] - ref[k]) if met[k] != ref[k] else 0.0
+                 for k in ("lufs", "true_peak_dbfs", "rms_dbfs")]
+            check(d[0] <= LONG_LU_TOL and max(d[1:]) <= LONG_DB_TOL,
+                  f"12b {label}: sharded meter {met} vs single-device {ref}")
+            timing[f"12b_{label}"] = {"max_abs": err, "metrics_gap": d, "wall_s": [wall, again],
+                                      "single_shot_s": single_s, "peak_gb": peak_gb,
+                                      "len_out": out.shape[0]}
+            print(f"[12b long] {label}: {out.shape} vs single-shot exact max-abs {err:.3e} "
+                  f"(tol {LONG_TOL}); meter d lufs {d[0]:.2e} LU, peak {d[1]:.2e}, rms "
+                  f"{d[2]:.2e} dB; walls {wall:.3f} / {again:.3f} s (single-shot "
+                  f"{single_s:.3f} s); peak allocated {peak_gb} GB — every shard on this "
+                  "one device", flush=True)
+            del out
+        del singles
+        walls["12b"] = time.perf_counter() - t_step
+
+        # ---------------- 12c: the partitioned convolution ----------------
+        t_step = time.perf_counter()
+        setup = pipeline.build_internal_setup(p, RATE, n_in)
+        seeds_t = ir_synth.to_device(ir_synth.seeds_to_int32([7]), dev)
+        early, late = bank.fused_rir_bank(seeds_t, setup.ir_shape, setup.ir_scalars)
+        ker = torch.cat([early, late])  # (2, L): the main path's IR pair
+        n_sig = setup.spec.len_out
+        sig = np.zeros((2, n_sig), np.float32)
+        sig[:, :n_in] = clips[:2]
+        block_mesh = mesh_of(block=4)
+        n_pad = partitioned_conv.padded_length(n_sig, ker.shape[1], 4)
+        sig_pad = np.pad(sig, ((0, 0), (0, n_pad - n_sig)))
+        conv, part_s = timed(lambda: partitioned_conv.partitioned_convolve(sig_pad, ker,
+                                                                            block_mesh))
+        _, part2_s = timed(lambda: partitioned_conv.partitioned_convolve(sig_pad, ker,
+                                                                          block_mesh))
+        n_lin = n_sig + ker.shape[1] - 1
+        sig_t = torch.from_numpy(sig).to(dev)
+        ref, full_s = timed(lambda: convolution.convolve_full(sig_t[None], ker[None], n_lin)[0])
+        peak = ref.abs().max().item()
+        rel = (conv[..., :n_lin] - ref).abs().max().item() / peak
+        check(tuple(conv.shape) == (2, 2, n_pad) and rel <= CONV_TOL,
+              f"12c: partitioned vs convolve_full {tuple(conv.shape)} relative max-abs {rel}")
+        timing["12c"] = {"relative_max_abs": rel, "partitioned_s": [part_s, part2_s],
+                         "convolve_full_s": full_s, "n": n_sig, "l": int(ker.shape[1])}
+        print(f"[12c partitioned] (2, {n_sig}) ⊛ (2, {ker.shape[1]}) at block 4: relative "
+              f"max-abs {rel:.3e} of peak {peak:.3f} (tol {CONV_TOL}); walls {part_s:.3f} / "
+              f"{part2_s:.3f} s, convolve_full {full_s:.3f} s", flush=True)
+        del conv, ref, sig_t
+        walls["12c"] = time.perf_counter() - t_step
+
+        # ---------------- 12d: serving over the mesh ----------------
+        t_step = time.perf_counter()
+        params = [RenderParams(target_layout="Stereo", diffusion=0.2 + 0.6 * i / (batch - 1),
+                               x_pos=i / (batch - 1)) for i in range(batch)]
+        seeds = [2000 + 11 * i for i in range(batch)]
+        n_bucket = sharding.bucket_length(n_in, RATE)
+        job_lens = [n_in - 97 * i for i in range(batch)]
+        staged = np.zeros((batch, n_bucket), np.float32)
+        for i, n in enumerate(job_lens):
+            staged[i, :n] = clips[i, :n]
+        direct_q, direct_m = sharding.render_batch(
+            staged, RATE, params, seeds=seeds, with_metrics=True, clip_lengths=job_lens,
+            pcm16_output=True, device_mesh=data_mesh, device=dev)
+        svc = RenderService(device_mesh=data_mesh, max_batch=batch, max_wait_ms=2000,
+                            pcm16_output=True, max_queued=2 * batch, device=dev)
+        try:
+            jobs = [RenderJob(clips[i, :job_lens[i]], RATE, params[i], seed=seeds[i],
+                              with_metrics=True) for i in range(batch)]
+            wait_all([svc.submit(j) for j in jobs])  # the warm burst
+            sync()
+            t0 = time.perf_counter()
+            results = wait_all([svc.submit(j) for j in jobs])
+            burst_s = time.perf_counter() - t0
+            st = svc.stats()
+        finally:
+            svc.stop()
+        check(st["batch_sizes"] == [batch, batch] and st["jobs_failed"] == 0,
+              f"12d: batches {st['batch_sizes']}, {st['jobs_failed']} failed")
+        tail = direct_q.shape[1] - n_bucket
+        for i, r in enumerate(results):
+            real = job_lens[i] + tail
+            check(np.array_equal(r.audio, direct_q[i, :real]) and r.metrics == direct_m[i],
+                  f"12d: job {i} differs from its row of the direct mesh render_batch")
+        del results, direct_q
+        timing["12d"] = {"burst_s": burst_s, "audio_s_per_s": sum(job_lens) / RATE / burst_s,
+                         "dispatch_s": st["dispatch_s"], "fetch_s": st["fetch_s"]}
+        print(f"[12d serving] RenderService(device_mesh=data {MESH_SHARDS}): {batch} jobs, each "
+              f"bit-equal to its row of the direct mesh render_batch; burst {burst_s:.3f} s "
+              f"({timing['12d']['audio_s_per_s']:.0f} audio-s/s)", flush=True)
+        argv = ["--matrix", "--soak", "2" if small else "5", "--mesh-devices", str(MESH_SHARDS),
+                "--warm-buckets", "2", "--device", device]
+        argv += (["--jobs", "4", "--seconds", "0.5", "--rate", "16000", "--soak-durations",
+                  "0.3,0.7", "--arrival-rate", "4"] if small else ["--soak-durations", "5.3,14.7"])
+        rc, printed, matrix_s = run_tool(bench_serving.main, argv)
+        check(rc == 0 and printed, f"12d matrix: exit {rc}")
+        for obj in printed:
+            print("[12d matrix] " + json.dumps(obj), flush=True)
+        arms = {a["arm"]: a for a in printed[-1]["arms"]}
+        check(set(arms) == {"bank+extir", "jnp", "mesh", "bank-mesh"}
+              and all(a["failed"] == 0 and a["completed"] > 0 for a in arms.values()),
+              f"12d matrix: arms {arms}")
+        timing["12d"]["matrix_s"] = matrix_s
+        walls["12d"] = time.perf_counter() - t_step
+
+        # ---------------- 12e: the dry runs ----------------
+        t_step = time.perf_counter()
+        report, dry_s = timed(lambda: graft_entry.dryrun_multichip(8, devices=[shard_dev] * 8))
+        print(f"[12e dryrun_multichip] {json.dumps(report)} in {dry_s:.2f} s", flush=True)
+        free_gb = None
+        if on_card:
+            # the two processes need card memory of their own: hand back what
+            # this process keeps cached after phases 4-12 (the allocator's
+            # blocks, the cuFFT plans beside it) — a full run left too little
+            sync()
+            torch.backends.cuda.cufft_plan_cache.clear()
+            torch.cuda.empty_cache()
+            free_gb = torch.cuda.mem_get_info()[0] / 1e9
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "audio_raytracing_studio_tpu_torch.tools.dryrun_distributed",
+             "--device", device, "--timeout", "240"],
+            capture_output=True, text=True, timeout=300, cwd=REPO)
+        two_s = time.perf_counter() - t0
+        lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        check(proc.returncode == 0 and lines and lines[-1]["ok"] is True
+              and lines[-1]["out_shape"][0] == lines[-1]["batch"],
+              f"12e dryrun_distributed: rc {proc.returncode} {proc.stdout[-500:]} "
+              f"{proc.stderr[-2000:]}")
+        print(f"[12e dryrun_distributed] {json.dumps(lines[-1])} in {two_s:.2f} s "
+              f"({free_gb} GB of the card free when it started)", flush=True)
+        timing["12e"] = {"dryrun_multichip_s": dry_s, "dryrun_distributed_s": two_s,
+                         "free_gb_before": free_gb}
+        walls["12e"] = time.perf_counter() - t_step
+    launches = bank.launch_count
+    errs = recorder.hold(torch) if on_card else [0.0, 0.0]
+    timing["walls_s"] = walls
+    timing["phase_s"] = time.perf_counter() - t_phase
+    return {"timing": timing, "launches": launches, "bank_errs": errs,
+            "held": {"hash": len(recorder.hash), "injected": len(recorder.injected)}}
+
+
 def rehearse_cpu(seconds: float) -> int:
-    """``--rehearse-cpu SECONDS``: phases 8, 9, 10 and 11's control flow on the
-    CPU at a short clip length (phase 9's 30-minute clip becomes SECONDS long,
-    every other length in proportion; phase 10's tools run at their tiny
-    sizes, phase 11's clip is SECONDS long), with the kernels' plain versions.  It measures nothing
+    """``--rehearse-cpu SECONDS``: phases 8, 9, 10, 11 and 12's control flow on
+    the CPU at a short clip length (phase 9's 30-minute clip becomes SECONDS
+    long, every other length in proportion; phase 10's tools run at their tiny
+    sizes, phase 11's clip is SECONDS long, phase 12 runs 8 clips and its long
+    render at SECONDS on meshes of ``["cpu"] * N``), with the kernels' plain
+    versions.  It measures nothing
     and prints no result line; it exists to find wrong paths, shapes and
     names before a run on the card."""
     import numpy as np
@@ -2816,6 +3137,10 @@ def rehearse_cpu(seconds: float) -> int:
         codecs = codec_phase(np, torch, bank, codec_work, device="cpu", seconds=seconds,
                              small=True)
         print("[11 rehearsal on the CPU: no device number] " + json.dumps(codecs["walls_s"]))
+        meshed = mesh_phase(np, torch, bank, work, device="cpu", batch=2 * MESH_SHARDS,
+                            seconds=seconds, long_seconds=seconds, small=True)
+        print("[12 rehearsal on the CPU: no device number] "
+              + json.dumps(meshed["timing"]["walls_s"]))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
@@ -2828,11 +3153,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU; "
                                  "with no arguments every phase runs and the result lines print.")
-    ap.add_argument("--only", choices=["8", "9", "10", "11"], default=None,
+    ap.add_argument("--only", choices=["8", "9", "10", "11", "12"], default=None,
                     help="development: phases 1, 2 and this one; prints no result line")
     ap.add_argument("--rehearse-cpu", type=float, default=None, metavar="SECONDS",
-                    help="development: phases 8, 9, 10 and 11's control flow on the CPU "
-                         "at this clip length")
+                    help="development: phases 8, 9, 10, 11 and 12's control flow on the "
+                         "CPU at this clip length")
     args = ap.parse_args(argv)
     if args.rehearse_cpu is not None:
         return rehearse_cpu(args.rehearse_cpu)
@@ -2937,8 +3262,23 @@ def main(argv=None) -> int:
             "bank_errs": result["bank_errs"], "checks": result["checks"]}), flush=True)
         return result
 
+    def meshes():
+        """Phase 12 in a temporary directory, its bank calls counted from 0."""
+        bank.launch_count = bank.injected_launch_count = 0
+        work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        try:
+            result = mesh_phase(np, torch, bank, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print("[12 timing] " + json.dumps({
+            "card": card, "nvidia_smi": smi, **result["timing"],
+            "launches": result["launches"], "held": result["held"],
+            "bank_errs": result["bank_errs"]}), flush=True)
+        return result
+
     if args.only is not None:
-        {"8": product, "9": long_clips, "10": lambda: tools({}), "11": codecs}[args.only]()
+        {"8": product, "9": long_clips, "10": lambda: tools({}), "11": codecs,
+         "12": meshes}[args.only]()
         print(f"chip_smoke: --only {args.only} ran phases 1, 2 and {args.only}; a partial run "
               "prints no result line")
         return 0
@@ -3198,6 +3538,12 @@ def main(argv=None) -> int:
     main_launches += coded["launches"]
     bank_err = max(bank_err, coded["bank_errs"][0])
 
+    # --- 12. the device mesh: data-parallel batch, long render, conv, serving, dry runs ---
+    torch.cuda.empty_cache()
+    meshed = meshes()
+    main_launches += meshed["launches"]
+    bank_err = max(bank_err, meshed["bank_errs"][0])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -3208,7 +3554,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": source,
         "replaces": "audio_raytracing_studio_tpu/ops/ir_synth_pallas.py:121",
-        "launches": main_launches,  # phases 4, 4c, 6, 7, 8, 9, 10 and 11
+        "launches": main_launches,  # phases 4, 4c, 6, 7, 8, 9, 10, 11 and 12
         "max_abs_err": bank_err,
         "ms": timing["bank_device"]["ms"],
         "plain_ms": timing["bank_plain_ms"],

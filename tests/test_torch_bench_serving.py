@@ -1,5 +1,6 @@
 """``tools/bench_serving.py`` on the CPU: each mode — the burst, ``--soak``,
-``--matrix --soak`` and ``--http --soak`` — runs in this process at a tiny
+``--matrix --soak`` (its mesh arms on a mesh of two CPU shards too) and
+``--http --soak`` — runs in this process at a tiny
 size and prints its JSON line with no failed job (every result of its true
 length and not silent).  The soak modes run short clips off the
 half-second grid (0.3 and 0.7 s) and warm one bucket, so the arrivals are
@@ -22,6 +23,7 @@ MODES = [
     ("burst", []),
     ("soak", ["--soak", "2"] + SOAK),
     ("matrix", ["--matrix", "--soak", "1"] + SOAK),
+    ("matrix-mesh", ["--matrix", "--soak", "1", "--mesh-devices", "2"] + SOAK),
     ("http", ["--http", "--soak", "2"] + SOAK),
     ("http-wav", ["--http", "--soak", "2", "--http-formats", "wav"] + SOAK),
 ]
@@ -43,6 +45,11 @@ def test_mode_prints_its_line_with_no_failed_job(mode, argv, capsys):
         assert arms["bank+extir"]["completed"] > 0 and arms["jnp"]["completed"] > 0
         assert arms["mesh"]["skipped"] == arms["bank-mesh"]["skipped"] == bench_serving.MESH_SKIPPED
         assert [a["arm"] for a in lines[:-1]] == ["bank+extir", "jnp"]
+    elif mode == "matrix-mesh":
+        # the mesh arms over ["cpu"] * 2: the plain IR path and the bank per shard
+        names = ["bank+extir", "jnp", "mesh", "bank-mesh"]
+        assert [a["arm"] for a in lines[:-1]] == [a["arm"] for a in line["arms"]] == names
+        assert all(a["failed"] == 0 and a["completed"] > 0 for a in line["arms"])
     else:
         assert line["completed"] == line["submitted"] > 0
         assert line["rejected_503"] == 0

@@ -8,7 +8,10 @@ against direct ``render_batch`` calls, bit for bit; the visualizer's device
 STFT against scipy at 60 s, ``process_audio_main_v41`` on the card against
 the same call on the CPU, the ``compat`` chain at 60 s against its
 float64 ``"oracle"`` arms; the streaming renderer at 5 minutes against the
-single-shot render, and its exact-length filters against float64 cuFFT.
+single-shot render, and its exact-length filters against float64 cuFFT; the
+device mesh on one card standing in for several shards (``ppermute`` across
+the shards' streams, the data-parallel ``render_batch`` against the
+meshless one, ``render_long`` against the single-shot render).
 
 Marked ``cuda``; each test skips (with a reason) where no card is present,
 as on a CPU-only machine.  This file imports no JAX (the oracle is NumPy and
@@ -667,3 +670,70 @@ def test_gain_curves_on_card_equal_numpy_bit_for_bit(cuda, n, rate):
     assert np.array_equal(filters._air_ramp(n, rate, cuda).cpu().numpy(), ramp.astype(np.float32))
     assert np.array_equal(bass.cpu().numpy(), (freqs > 1e-6) & (freqs <= config.EQ_BASS_CUTOFF_HZ))
     assert np.array_equal(treble.cpu().numpy(), freqs >= config.EQ_TREBLE_CUTOFF_HZ)
+
+
+# --- the device mesh: one card standing in for several shards -----------------
+
+
+def card_mesh(data=1, block=1):
+    from audio_raytracing_studio_tpu_torch.parallel import mesh
+
+    return mesh.make_mesh(data=data, block=block, devices=["cuda:0"] * (data * block))
+
+
+def test_ppermute_on_one_card_copies_across_streams(cuda):
+    """Two shards of one card hand tensors over by event, into fresh memory."""
+    from audio_raytracing_studio_tpu_torch.parallel import mesh
+
+    axis = card_mesh(block=4).axis("block")
+    shards = axis.map(lambda k: torch.full((1 << 20,), float(k), device=cuda), range(4))
+    out = mesh.ppermute(axis, shards, mesh.ring(axis))
+    axis.map(lambda s: s.fill_(-1.0), shards)  # later writes on the senders' streams
+    torch.cuda.synchronize()
+    for k in range(4):
+        assert out[k].data_ptr() != shards[(k - 1) % 4].data_ptr()
+        assert torch.equal(out[k], torch.full((1 << 20,), float((k - 1) % 4), device=cuda))
+    total = mesh.psum(axis, [s + 2.0 for s in shards])
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, torch.full((1 << 20,), 4.0, device=cuda)) for t in total)
+
+
+def test_mesh_render_batch_on_card_equals_meshless(cuda):
+    """data=4 on one card, with metrics, PCM16 and padded EQ-on clips:
+    PCM16 within 1 LSB of the meshless render (a shard's cuFFT plans are
+    made for B/4 rows), metrics within 1e-5."""
+    rate = 48000
+    t = np.arange(rate * 2) / rate
+    clips = np.stack([(0.4 * np.sin(2 * np.pi * (220 + 40 * i) * t)).astype(np.float32)
+                      for i in range(8)])
+    lens = [clips.shape[1] - 997 * (i % 3) for i in range(8)]
+    for b, n in enumerate(lens):
+        clips[b, n:] = 0.0
+    p = RenderParams(target_layout="Stereo", bass_gain=1.6, treble_gain=0.7)
+    kw = dict(seeds=range(8), with_metrics=True, pcm16_output=True, clip_lengths=lens,
+              device="cuda")
+    before = bank.launch_count
+    q, metrics = sharding.render_batch(clips, rate, p, device_mesh=card_mesh(4), **kw)
+    assert bank.launch_count == before + 4  # the bank once per shard
+    want, want_metrics = sharding.render_batch(clips, rate, p, **kw)
+    assert np.abs(q.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    for g, w in zip(metrics, want_metrics):
+        assert all(abs(g[k] - w[k]) <= 1e-5 for k in g)
+
+
+def test_render_long_on_card_matches_single_shot(cuda):
+    from audio_raytracing_studio_tpu_torch.parallel import long_render
+
+    rate = 48000
+    rng = np.random.default_rng(3)
+    t = np.arange(rate * 5) / rate
+    x = (0.4 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+    p = RenderParams(target_layout="7.1 (Surround)", room_size=120.0, bass_gain=1.6,
+                     treble_gain=0.7)
+    out, metrics = long_render.render_long(x, rate, p, card_mesh(block=4), seed=3,
+                                           with_metrics=True)
+    exact, solo = pipeline.render(x, rate, p, seed=3, fast_filters=False, return_metrics=True,
+                                  device="cuda")
+    assert out.shape == exact.shape
+    assert np.abs(out - exact).max() <= ORACLE_TOL
+    assert abs(metrics["lufs"] - solo["lufs"]) <= 0.02

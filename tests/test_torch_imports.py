@@ -49,7 +49,10 @@ def test_every_port_module_is_listed():
                      "tools.bench_serving", "tools.fuzz_campaign", "graft_entry",
                      "utils.flacio", "utils.vorbisio", "utils.vorbisenc", "utils.mp3io",
                      "utils.lavcio", "utils._native_pcm", "utils._native_flac",
-                     "utils._native_vorbis", "utils._native_lavc", "tools.bench_codecs"):
+                     "utils._native_vorbis", "utils._native_lavc", "tools.bench_codecs",
+                     "parallel.mesh", "parallel.partitioned_conv",
+                     "parallel.distributed_fft", "parallel.long_render",
+                     "tools.dryrun_distributed"):
         assert f"{port.__name__}.{expected}" in names
 
 

@@ -358,7 +358,9 @@ class TestRenderBatchContract:
             assert max_err(out[i], solo) <= 1e-6
 
     @pytest.mark.parametrize("kwargs, exc", [
-        ({"device_mesh": object()}, NotImplementedError),
+        # a device_mesh that is no parallel.mesh.Mesh (the id dates from
+        # when every mesh was refused)
+        pytest.param({"device_mesh": object()}, TypeError, id="kwargs0-NotImplementedError"),
         ({"real_batch": 0}, ValueError),
         ({"ir_backend": "pallas"}, ValueError),
         ({"seeds": [1, 2, 3]}, ValueError),

@@ -527,7 +527,7 @@ def test_backpressure_and_stopped_service():
 @pytest.mark.parametrize("kw, error", [
     (dict(max_batch=0), ValueError), (dict(max_queued=0), ValueError),
     (dict(pipeline_depth=0), ValueError), (dict(ir_backend="pallas"), ValueError),
-    (dict(device_mesh=object()), NotImplementedError),
+    (dict(device_mesh=object()), TypeError),
 ], ids=["max_batch", "max_queued", "depth", "ir_backend", "mesh"])
 def test_constructor_rejects(kw, error):
     with pytest.raises(error):

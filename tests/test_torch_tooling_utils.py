@@ -199,6 +199,19 @@ def test_entry_needs_a_card_by_default():
 
 
 def test_dryrun_multichip_names_item_16():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        graft_entry.dryrun_multichip(8)
+    """ROADMAP item 16 (multi-device) is in: the dry run takes the visible
+    cards by default and refuses, as the JAX one does, when there are fewer
+    devices than asked for."""
+    with pytest.raises(RuntimeError, match=r"dryrun_multichip\(8\) but only 2 devices"):
+        graft_entry.dryrun_multichip(8, devices=["cpu"] * 2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            graft_entry.dryrun_multichip(8)
+
+
+def test_dryrun_multichip_on_eight_cpu_shards():
+    report = graft_entry.dryrun_multichip(8, devices=["cpu"] * 8)
+    assert report["batch"][0] == 16 and report["batch"][2] == 6
+    assert report["partitioned"] == [2, 4]
+    assert report["long"][1] == 8 and np.isfinite(report["long_metrics"]["lufs"])
 
