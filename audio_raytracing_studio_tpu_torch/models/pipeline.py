@@ -15,7 +15,7 @@ host-visible skips (:312, :360, :369, :389).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,20 +95,19 @@ def _mix_eq_spatial(
     wet: torch.Tensor,
     scal: MixScalars,
     spec: StaticSpec,
-    eq_lengths: Optional[Sequence[int]] = None,
+    eq_dyn: Optional[filters.EQDyn] = None,
 ) -> torch.Tensor:
     """Shared back half: dry/wet mix → EQ → normalize → pan → map (B, C, N).
 
-    ``eq_lengths``: per-clip true output lengths of a zero-padded batch —
-    the EQ then runs on each clip at its true length (zeros past it),
-    overriding ``spec.eq_on`` (``filters.apply_shelf_eq_padded``).
+    ``eq_dyn``: per-clip true output lengths and band edges of a
+    zero-padded batch — the EQ then runs on each clip at its true length
+    (zeros past it), overriding ``spec.eq_on``
+    (``filters.apply_shelf_eq_dynamic``).
     """
     dry_coef = scal.dry_factor * (1.0 - scal.dry_wet)
     mixed = _col(dry_coef) * dry + _col(scal.dry_wet) * wet
-    if eq_lengths is not None:
-        mixed = filters.apply_shelf_eq_padded(
-            mixed, spec.rate, scal.bass_gain, scal.treble_gain, eq_lengths
-        )
+    if eq_dyn is not None:
+        mixed = filters.apply_shelf_eq_dynamic(mixed, scal.bass_gain, scal.treble_gain, eq_dyn)
     elif spec.eq_on:
         mixed = filters.apply_shelf_eq(mixed, spec.rate, scal.bass_gain, scal.treble_gain)
     mixed = filters.conditional_peak_normalize(mixed)
@@ -126,7 +125,7 @@ def internal_graph_with_irs(
     late_ir: torch.Tensor,
     scal: MixScalars,
     spec: StaticSpec,
-    eq_lengths: Optional[Sequence[int]] = None,
+    eq_dyn: Optional[filters.EQDyn] = None,
 ) -> torch.Tensor:
     """Internal-hall render from prebuilt IRs (e.g. the fused RIR bank).
 
@@ -176,7 +175,7 @@ def internal_graph_with_irs(
         wet = torch.zeros((batch, audio.shape[1], len_out), device=audio.device)
 
     dry = torch.nn.functional.pad(audio, (0, len_out - spec.n_in))
-    return _mix_eq_spatial(dry, wet, scal, spec, eq_lengths)
+    return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
 
 
 def internal_graph(
@@ -200,7 +199,7 @@ def external_graph(
     ir: torch.Tensor,
     scal: MixScalars,
     spec: StaticSpec,
-    eq_lengths: Optional[Sequence[int]] = None,
+    eq_dyn: Optional[filters.EQDyn] = None,
 ) -> torch.Tensor:
     """External true-stereo IR render: L⊛IR_L, R⊛IR_R, mix, map.
 
@@ -208,7 +207,7 @@ def external_graph(
     """
     wet = convolution.convolve_pairwise(audio, ir, spec.len_out)
     dry = torch.nn.functional.pad(audio, (0, spec.len_out - spec.n_in))
-    return _mix_eq_spatial(dry, wet, scal, spec, eq_lengths)
+    return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
 
 
 def quantize_pcm16(x: torch.Tensor) -> torch.Tensor:

@@ -25,10 +25,8 @@ The JAX package computes the residues with int32 modular doubling (its TPU
 has no int64) and the angles in float32; int64 holds ``k²`` exactly for
 k < 2^30 and float64 angles are closer to the true chirp, so the values of
 ``_modsq`` are the same and the transforms agree to float32 round-off.
-Own copies of what the JAX module takes from ``ops/chirp.py`` (``_modsq``,
-``_chirp``, ``chirp_kernel_at_bins``, ``band_edges``,
-``shelf_gain_from_edges``, ``shelf_gain_at_bins``) live here;
-``fft_length_for`` is ``streaming_eq.bluestein_length``.
+The chirp arithmetic, the band edges and the shelf gain come from the
+port's ``ops/chirp.py``, as the JAX module takes them from its own.
 """
 
 from __future__ import annotations
@@ -36,13 +34,19 @@ from __future__ import annotations
 import math
 from typing import List
 
-import numpy as np
 import torch
 
-from .. import config
+from ..ops.chirp import (  # noqa: F401  (_modsq, shelf_gain_at_bins: re-exported as the JAX module does)
+    _chirp,
+    _modsq,
+    band_edges,
+    chirp_kernel_at_bins,
+    fft_length_for,
+    shelf_gain_at_bins,
+    shelf_gain_from_edges,
+)
 from . import mesh as meshlib
 from .streaming_eq import MAX_N0
-from .streaming_eq import bluestein_length as fft_length_for  # the next power of two ≥ 2·n0 − 1
 
 
 def is_power_of_two(n: int) -> bool:
@@ -52,74 +56,6 @@ def is_power_of_two(n: int) -> bool:
 def block_len_for(n0: int, num_blocks: int) -> int:
     """The renderer block length that aligns with the EQ's FFT layout."""
     return fft_length_for(n0) // (2 * num_blocks)
-
-
-def _modsq(j: torch.Tensor, modulus: int) -> torch.Tensor:
-    """(j² mod modulus) for int j ∈ [0, 2^30) — exact in int64 (j² < 2^60)."""
-    j = j.to(torch.int64)
-    return (j * j).remainder(int(modulus))
-
-
-def _chirp(j: torch.Tensor, n0: int, sign: float) -> torch.Tensor:
-    """exp(sign·iπ·j²/n0) with the phase reduced exactly mod 2π → complex64.
-    ``j`` outside [0, n0) gives a value callers mask."""
-    angle = _modsq(j, 2 * n0).to(torch.float64) * (sign * math.pi / n0)
-    return torch.complex(torch.cos(angle).float(), torch.sin(angle).float())
-
-
-def chirp_kernel_at_bins(k: torch.Tensor, n0: int, m: int, sign: float) -> torch.Tensor:
-    """Bluestein time-domain chirp kernel at global m-indices ``k``:
-    K[k] = w̄[k] (k < n0), K[m−k] = w̄[m−k] (m − n0 < k), else 0."""
-    head = k < n0
-    tail = k > m - n0  # the mirror region; maps to w̄[m−k]
-    idx = torch.where(head, k, torch.where(tail, m - k, torch.zeros_like(k)))
-    wbar = _chirp(idx, n0, sign=-sign)  # conj of the length-n0 chirp
-    return torch.where(head | tail, wbar, torch.zeros_like(wbar))
-
-
-def band_edges(n0: int, rate: int):
-    """(k_lo, k_bass, k_treble): bass bins are [k_lo, k_bass], treble bins
-    start at k_treble — replicating ``np.fft.rfftfreq``'s float64 arithmetic
-    bit for bit, since a bin can land exactly on a cutoff with float dust
-    (250.00000000000003 Hz at 44.1 kHz) where an integer floor / ceil of
-    cutoff·n0/rate disagrees with the single-device masks (host code)."""
-    val = 1.0 / (n0 * (1.0 / rate))  # rfftfreq(n0, d=1/rate) bin spacing
-    half = n0 // 2
-    bass_hz = float(config.EQ_BASS_CUTOFF_HZ)
-    treble_hz = float(config.EQ_TREBLE_CUTOFF_HZ)
-
-    k_lo = 0  # smallest bin with freq > 1e-6 (the bass mask's DC exclusion)
-    while k_lo <= half and k_lo * val <= 1e-6:
-        k_lo += 1
-    k_bass = min(int(np.floor(bass_hz * n0 / rate)) + 2, half)
-    while k_bass >= 0 and k_bass * val > bass_hz:
-        k_bass -= 1
-    k_treble = max(int(np.ceil(treble_hz * n0 / rate)) - 2, 0)
-    while k_treble <= half and k_treble * val < treble_hz:
-        k_treble += 1
-    return k_lo, k_bass, k_treble
-
-
-def shelf_gain_from_edges(k: torch.Tensor, n0: int, k_lo: int, k_bass: int, k_treble: int,
-                          bass_gain, treble_gain) -> torch.Tensor:
-    """Two-sided shelf gain at bin indices ``k`` (0 outside [0, n0); in-band
-    bins outside both masks 1); the treble mask wins where both hold.  The
-    gains are floats or tensors that broadcast against ``k``."""
-    in_band = k < n0
-    bass_mask = in_band & (((k >= k_lo) & (k <= k_bass)) | ((k >= n0 - k_bass) & (k <= n0 - k_lo)))
-    treble_mask = in_band & (k >= k_treble) & (k <= n0 - k_treble)
-    lo, hi = config.EQ_GAIN_CLIP
-    as_t = lambda g: torch.as_tensor(g, dtype=torch.float32, device=k.device)  # noqa: E731
-    one = torch.ones((), dtype=torch.float32, device=k.device)
-    gain = torch.where(bass_mask, as_t(bass_gain).clamp(lo, hi), one)
-    gain = torch.where(treble_mask, as_t(treble_gain).clamp(lo, hi), gain)
-    return torch.where(in_band, gain, torch.zeros_like(gain)).to(torch.float32)
-
-
-def shelf_gain_at_bins(k: torch.Tensor, n0: int, rate: int, bass_gain: torch.Tensor,
-                       treble_gain: torch.Tensor) -> torch.Tensor:
-    """Static-n0 convenience: host band edges + ``shelf_gain_from_edges``."""
-    return shelf_gain_from_edges(k, n0, *band_edges(n0, rate), bass_gain, treble_gain)
 
 
 def _indices(axis: meshlib.Axis, c: int, length: int) -> torch.Tensor:

@@ -36,7 +36,7 @@ import torch
 from ..metering import kweighting as kw
 from ..metering import loudness
 from ..models import pipeline
-from ..ops import ir_synth
+from ..ops import filters, ir_synth
 from ..ops.ir_synth_cuda import fused_rir_bank
 from ..params import RenderParams, eq_enabled
 from ..utils.runtime import ensure_device
@@ -61,7 +61,7 @@ def _batched_internal(
     ir_shape: ir_synth.IRShape,
     spec: pipeline.StaticSpec,
     ir_backend: str = "bank",
-    eq_lengths: Optional[Sequence[int]] = None,
+    eq_dyn: Optional[filters.EQDyn] = None,
 ) -> torch.Tensor:
     """Device-resident batched render → (B, channels, len_out) float32.
 
@@ -70,7 +70,8 @@ def _batched_internal(
     ``ir_backend="bank"`` takes the IRs from ``fused_rir_bank``;
     ``"jnp"`` (named after the JAX package's backend) runs the plain
     per-clip ``synthesize`` on the same seeds, for comparison only.
-    ``eq_lengths``: per-clip true output lengths for the EQ of padded clips.
+    ``eq_dyn``: per-clip true output lengths and band edges for the EQ of
+    padded clips (``filters.apply_shelf_eq_dynamic``).
     """
     if ir_backend == "bank":
         early, late = fused_rir_bank(seeds, ir_shape, ir_scalars)
@@ -87,7 +88,7 @@ def _batched_internal(
         late = torch.stack([l for _, l in pairs])
     else:
         raise ValueError(f"ir_backend must be one of {IR_BACKENDS}, got {ir_backend!r}")
-    return pipeline.internal_graph_with_irs(audio, early, late, mix_scalars, spec, eq_lengths)
+    return pipeline.internal_graph_with_irs(audio, early, late, mix_scalars, spec, eq_dyn)
 
 
 def _meter_and_quantize(out: torch.Tensor, rate: int, with_metrics: bool, pcm16: bool,
@@ -229,8 +230,10 @@ def render_batch(
 
     ``clip_lengths``: per-clip TRUE input lengths of a zero-padded batch.
     Metrics then measure each clip's true output span
-    ``min(len, N) + ir_len − 1``, and padded clips with shelf EQ are
-    EQ'd at that true length (``filters.apply_shelf_eq_padded``).
+    ``min(len, N) + ir_len − 1``, and when a padded clip has shelf EQ on,
+    every clip is EQ'd at that true length by the length-dynamic EQ
+    (``filters.apply_shelf_eq_dynamic``: its cuFFT plans depend on the
+    padded length, not on the true lengths).
 
     ``with_metrics``: the on-device meter (LUFS, sample peak, RMS) per clip.
 
@@ -275,15 +278,22 @@ def render_batch(
             return None
         return [min(int(tl), n_in) + ir_length - 1 for tl in clip_lengths]
 
-    def eq_lengths(ir_length: int):
-        """True lengths for the EQ when a padded clip has EQ on, else None
-        (the static EQ at the buffer length is then exact for every clip)."""
-        if clip_lengths is None or not any(
-            int(tl) != n_in and eq_enabled(p.bass_gain, p.treble_gain)
-            for tl, p in zip(clip_lengths, param_list)
-        ):
+    padded_eq = clip_lengths is not None and any(
+        int(tl) != n_in and eq_enabled(p.bass_gain, p.treble_gain)
+        for tl, p in zip(clip_lengths, param_list)
+    )
+    eq_rows = {}  # ir_length → per-clip host EQDyn rows, built once per call
+
+    def eq_dyn(ir_length: int, rows: slice, here: torch.device):
+        """The length-dynamic EQ's scalars for ``rows`` on ``here`` when a
+        padded clip has EQ on, else None (the static EQ at the buffer
+        length is then exact for every clip)."""
+        if not padded_eq:
             return None
-        return true_lengths(ir_length)
+        if ir_length not in eq_rows:
+            eq_rows[ir_length] = [filters.eq_dyn_host(n0, rate)
+                                  for n0 in true_lengths(ir_length)]
+        return filters.EQDyn.stack(eq_rows[ir_length][rows], here)
 
     def rows_of(values, rows: slice):
         return None if values is None else values[rows]
@@ -309,7 +319,7 @@ def render_batch(
                 [pipeline._mix_scalars(p, 1.0, 1.0) for p in param_list[rows]], here
             )
             out = pipeline.external_graph(_stage_clips(audio[rows], here), ir.T, mix, spec,
-                                          rows_of(eq_lengths(ir_length), rows))
+                                          eq_dyn(ir_length, rows, here))
             return out, rows_of(true_lengths(ir_length), rows)
     else:
         setups = [
@@ -357,7 +367,7 @@ def render_batch(
                 shape0,
                 spec,
                 ir_backend=ir_backend,
-                eq_lengths=rows_of(eq_lengths(ir_length), rows),
+                eq_dyn=eq_dyn(ir_length, rows, here),
             )
             return out, rows_of(true_lengths(ir_length), rows)
 

@@ -25,7 +25,9 @@ the padded buffer length, whose plans hold no such tables:
     y   = c₂ · w⁺ / n0
 
 The chirp phases are exact integers ``j² mod 2n0`` (int64), turned into
-angles in float64.  The gains are the single-shot filters' own curves
+angles in float64; the chirp and the two convolutions are ``ops.chirp``'s,
+which the batched length-dynamic EQ (``ops.filters.apply_shelf_eq_dynamic``)
+runs too.  The gains are the single-shot filters' own curves
 (``ops.filters``) on the rfft bins, mirrored onto the full spectrum: real and
 symmetric under k → n0−k, so a pair of channels runs as one complex stream
 L + iR and splits exactly into Re and Im; an odd last channel runs alone.
@@ -36,40 +38,14 @@ TPU's FFT scratch and are not carried.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from ..ops import filters
+from ..ops import chirp, filters
+from ..ops.chirp import fft_length_for as bluestein_length  # the power of two ≥ 2·n − 1
 from ..ops.ir_synth import to_device
 
 MAX_N0 = 1 << 30  # the JAX package's limit, kept so that both refuse the same lengths
-
-
-def bluestein_length(n: int) -> int:
-    """The power-of-two convolution length m ≥ 2·n − 1."""
-    return 1 << max(0, 2 * int(n) - 2).bit_length()
-
-
-def _chirp(n0: int, device) -> torch.Tensor:
-    """w⁺[j] = e^{+iπ(j² mod 2n0)/n0} for j in [0, n0), complex64; the phase
-    is an exact int64 residue (j² < 2^60), the angle float64."""
-    phase = torch.arange(n0, dtype=torch.int64, device=device)
-    phase.mul_(phase).remainder_(2 * n0)
-    angle = phase.to(torch.float64).mul_(math.pi / n0)
-    del phase
-    return torch.complex(torch.cos(angle).float(), torch.sin(angle).float())
-
-
-def _kernel_spectrum(w_plus: torch.Tensor, m: int) -> torch.Tensor:
-    """K⁺ = FFT_m of the even chirp kernel: w⁺[d] at d and at m − d."""
-    n0 = w_plus.shape[0]
-    kernel = torch.zeros(m, dtype=torch.complex64, device=w_plus.device)
-    kernel[:n0] = w_plus
-    if n0 > 1:
-        kernel[m - n0 + 1 :] = w_plus[1:].flip(0)
-    return torch.fft.fft(kernel)
 
 
 def _full_spectrum(half: torch.Tensor, n0: int) -> torch.Tensor:
@@ -80,28 +56,6 @@ def _full_spectrum(half: torch.Tensor, n0: int) -> torch.Tensor:
     return torch.cat([half, half[1 : n0 - n_half + 1].flip(0)])
 
 
-def _bluestein_filter(z: torch.Tensor, gain: torch.Tensor, w_plus: torch.Tensor,
-                      k_plus: torch.Tensor) -> torch.Tensor:
-    """The circular filter of ``gain`` (n0,) real over one complex stream
-    ``z`` (n0,) → (n0,) complex64."""
-    n0, m = z.shape[0], k_plus.shape[0]
-    u = torch.zeros(m, dtype=torch.complex64, device=z.device)
-    u[:n0] = z * w_plus.conj()
-    spec = torch.fft.fft(u)
-    del u
-    spec.mul_(k_plus)
-    c1 = torch.fft.ifft(spec)
-    del spec
-    c1[n0:] = 0.0
-    c1[:n0].mul_(gain).conj_physical_()
-    spec = torch.fft.fft(c1)
-    del c1
-    spec.mul_(k_plus)
-    c2 = torch.fft.ifft(spec)[:n0]
-    del spec
-    return c2.conj_physical_().mul_(w_plus).div_(n0)
-
-
 def _exact_length(buf_cn: torch.Tensor, n0: int, half_gain: torch.Tensor) -> torch.Tensor:
     """The circular filter of ``half_gain`` (its rfft-bin curve at n0) over
     ``buf_cn[:, :n0]``, a pair of channels per complex stream; zeros past
@@ -109,8 +63,8 @@ def _exact_length(buf_cn: torch.Tensor, n0: int, half_gain: torch.Tensor) -> tor
     c_count, n_total = int(buf_cn.shape[0]), int(buf_cn.shape[1])
     n_copy = min(n0, n_total)
     m = bluestein_length(max(n0, n_total))
-    w_plus = _chirp(n0, buf_cn.device)
-    k_plus = _kernel_spectrum(w_plus, m)
+    w_plus = chirp._chirp(torch.arange(n0, dtype=torch.int64, device=buf_cn.device), n0, +1.0)
+    k_plus = chirp.kernel_spectrum(w_plus, m)
     gain = _full_spectrum(half_gain, n0)
     out = torch.zeros_like(buf_cn)
     for ch in range(0, c_count, 2):
@@ -119,7 +73,7 @@ def _exact_length(buf_cn: torch.Tensor, n0: int, half_gain: torch.Tensor) -> tor
         z.real[:n_copy] = buf_cn[ch, :n_copy]
         if pair:
             z.imag[:n_copy] = buf_cn[ch + 1, :n_copy]
-        y = _bluestein_filter(z, gain, w_plus, k_plus)
+        y = chirp.bluestein_filter(z, gain, w_plus, k_plus, n0)
         out[ch, :n_copy] = y.real[:n_copy]
         if pair:
             out[ch + 1, :n_copy] = y.imag[:n_copy]

@@ -37,10 +37,12 @@ every linear-convolution stage, and the exact air filter's smooth gain ramp
 is insensitive to it at half-second granularity.  The circular shelf EQ is
 NOT: its brick-wall masks ring over the whole circle, so ``render_batch``
 EQs every padded EQ-on clip at its true length
-(``ops.filters.apply_shelf_eq_padded``, equal to the unpadded solo render).
-That costs one cuFFT plan pair per distinct true length: under arbitrary
-upload lengths the plan cache is the resource to bound, so the service caps
-it (``FFT_PLAN_CACHE_MAX``) and reports its size in ``stats()``.
+(``ops.filters.apply_shelf_eq_dynamic``, equal to the unpadded solo render).
+That EQ is a Bluestein at the power of two of the bucket's output length
+with each clip's true length as a per-row scalar, so its cuFFT plans depend
+on the bucket and the batch size, never on the upload lengths.  The service
+still caps the plan cache (``FFT_PLAN_CACHE_MAX``: buckets, batch sizes and
+external IRs each add plans) and reports its size in ``stats()``.
 
 In this eager runtime the half-second bucket and the power-of-two batch
 sizes are batching keys that bound the cuFFT plan set and the allocator's
@@ -81,8 +83,9 @@ log = logging.getLogger("ars_torch.serving")
 _STOP = object()
 
 # cuFFT plans PyTorch may keep for the service's card (its default is 4096).
-# Every distinct (length, batch, type) is a plan; the padded EQ makes one
-# pair per distinct true clip length, each with tables sized to the clip.
+# Every distinct (length, batch, type) is a plan: each bucket and batch size
+# makes its own, the padded EQ's included (it keys on the bucket, not on
+# the clips' true lengths).
 FFT_PLAN_CACHE_MAX = 256
 
 
@@ -467,7 +470,7 @@ class RenderService:
         # submitting thread); it is duplicated while the group is stacked
         clip = audio[:, :2]
         # EQ-on jobs bucket like everything else: render_batch EQs each
-        # padded clip at its true length
+        # padded clip at its true length with plans keyed on the bucket
         n_bucket = sharding.bucket_length(clip.shape[0], rate)
         streaming = (
             self.streaming_threshold_s is not None

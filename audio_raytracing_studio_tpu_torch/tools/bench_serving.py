@@ -784,7 +784,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arrival-rate", type=float, default=2.0,
                     help="soak mean arrival rate, jobs/s (Poisson)")
     # off the half-second bucket grid on purpose: padded EQ-on jobs exercise
-    # the per-length EQ under sustained load
+    # the length-dynamic EQ under sustained load
     ap.add_argument("--soak-durations", default="5.3,14.7,44.9",
                     help="comma-separated clip durations (s) cycled through in the soak")
     ap.add_argument("--max-queued", type=int, default=64)

@@ -59,7 +59,15 @@ Phases, one line each:
    ``synthesize``): ≤ 1e-4 max-abs, ≤ 0.01 LU, peak and RMS ≤ 0.01 dB;
 4c. metered padded batch: mixed true lengths, EQ off (fast) and on (exact);
    clips 0 and 47 against the CPU path, masked metrics against the meter
-   on the trimmed output;
+   on the trimmed output.  Each batch runs cold and again, the EQ-on batch
+   also on 48 new true lengths in the same bucket; each run prints its wall,
+   the cuFFT plan-cache size and the free device memory, and the new lengths
+   must add no plan (the length-dynamic EQ, ``filters.apply_shelf_eq_dynamic``,
+   keys its plans on the bucket).  Then ``[4c eq]``: that EQ against its
+   plain version ``apply_shelf_eq_padded`` at (48, 2, 2,951,999) with the
+   batch's true lengths (≤ 2e-5, zero past each length), each cold with the
+   plan cache emptied (wall, plans added, free-memory drop) and warm by CUDA
+   events beside the bytes bound; ``[4c timing]``;
 5. timing: realtime factor of both modes, unmetered and metered, on
    device-resident inputs (settle, then the median of 3); the meter alone;
    both banks: their kernels' device time (torch.profiler), the wrapper
@@ -226,8 +234,8 @@ Phases, one line each:
 
 Development options (a run with either prints no result line):
 ``--only 8`` … ``--only 12`` runs phases 1, 2 and that phase;
-``--rehearse-cpu SECONDS`` walks phases 8 to 12's control flow on the CPU at
-a short clip length.
+``--rehearse-cpu SECONDS`` walks phases 4c and 8 to 12's control flow on the
+CPU at a short clip length.
 
 Then one JSON line listing the kernels (each with its bound at this run's
 shape: bytes over 3.35 TB/s against operations over 67 TFLOP/s, the
@@ -258,6 +266,7 @@ RATE = 48000
 BANK_TOL = 2e-5  # kernel vs plain bank on the card: float round-off (sum order, expf/powf ulps)
 SERVE_TOL = 2e-5  # a served job vs its solo render on the card: the padded bucket's cuFFT lengths vs the true ones
 RENDER_TOL = 1e-4  # card vs CPU render: cuFFT vs pocketFFT float32 over 3·2^20 and 2,951,999 points
+EQ_TOL = 2e-5  # 4c: the length-dynamic EQ vs its exact-length plain version, unit-peak rows
 LU_TOL = 0.01  # card vs CPU meter, masked vs trimmed (PARITY.md item 2's bound)
 DB_TOL = 0.01  # sample peak and RMS, dB
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
@@ -498,40 +507,154 @@ def parity_phase(np, pipeline, bank, mono) -> dict:
     return {"cpu_s": cpu_s, "internal_renders": internal}
 
 
-def metered_batch_phase(np, torch, sharding, loudness, bank, clips) -> None:
-    """render_batch(with_metrics, clip_lengths, pcm16) at B=48 × 60 s with
-    mixed true lengths, EQ off and on; clips 0 and 47 against the CPU path,
-    and their masked metrics against the meter on the trimmed output."""
-    from audio_raytracing_studio_tpu_torch import RenderParams
+def card_state(torch, device) -> dict:
+    """After a synchronize: the card's cuFFT plan-cache size, its free memory
+    and the bytes in use beside PyTorch's allocator (GB); zeros on the CPU."""
+    if torch.device(device).type != "cuda":
+        return {"plans": 0, "free_gb": 0.0, "outside_gb": 0.0}
+    torch.cuda.synchronize()
+    return {"plans": torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()].size,
+            "free_gb": torch.cuda.mem_get_info()[0] / 1e9,
+            "outside_gb": outside_allocator(torch) / 1e9}
 
-    n_in = clips.shape[1]
-    # the last ~20% of each clip cut by a different amount (clip 0 keeps all)
-    lengths = [n_in - int(0.2 * n_in * b / (BATCH - 1)) for b in range(BATCH)]
-    padded = clips.copy()
-    for b, tl in enumerate(lengths):
-        padded[b, tl:] = 0.0
-    pick = [0, BATCH - 1]
+
+def clear_plans(torch, device) -> None:
+    """Empty the cuFFT plan cache and the allocator's free blocks (no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()].clear()
+        torch.cuda.empty_cache()
+
+
+def eq_hold(np, torch, filters, n0s, length: int, device: str) -> dict:
+    """The length-dynamic EQ against its plain version (one exact-length
+    pair per distinct true length) at the metered batch's shape: B rows of
+    (2, length) seeded noise, unit-peak on [0, n0) and zero past it, bass
+    1.6, treble 0.7.  Each runs cold (the plan cache emptied first), then
+    warm by CUDA events; their outputs within EQ_TOL, the dynamic one
+    exactly zero past each n0."""
+    batch = len(n0s)
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((batch, 2, length), generator=gen, device=device)
+    n0_t = torch.tensor(n0s, device=device)[:, None, None]
+    past = torch.arange(length, device=device) >= n0_t
+    x.masked_fill_(past, 0.0)
+    x /= x.abs().amax(dim=(1, 2), keepdim=True)
+    bg = torch.full((batch,), 1.6, device=device)
+    tg = torch.full((batch,), 0.7, device=device)
+    rows = [filters.eq_dyn_host(n0, RATE) for n0 in n0s]
+    arms = {
+        "dynamic": lambda: filters.apply_shelf_eq_dynamic(
+            x, bg, tg, filters.EQDyn.stack(rows, device)),
+        "plain": lambda: filters.apply_shelf_eq_padded(x, RATE, bg, tg, n0s),
+    }
+    on_card = torch.device(device).type == "cuda"
+    out, result = {}, {}
+    for name, fn in arms.items():
+        clear_plans(torch, device)
+        before = card_state(torch, device)
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        after = card_state(torch, device)
+        if on_card:
+            warm_ms = cuda_ms(torch, fn, 3)
+        else:  # a CPU rehearsal: host clock, no device number
+            t0 = time.perf_counter()
+            fn()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+        result[name] = {"cold_s": cold, "warm_ms": warm_ms,
+                        "plans_added": after["plans"] - before["plans"],
+                        "free_drop_gb": before["free_gb"] - after["free_gb"],
+                        "outside_gb": after["outside_gb"]}
+    err = float((out["dynamic"] - out["plain"]).abs().max())
+    check(err <= EQ_TOL, f"4c EQ: dynamic vs plain max-abs {err} > {EQ_TOL}")
+    check(not out["dynamic"].masked_select(past).any(), "4c EQ: dynamic not zero past n0")
+    bound_ms = 2 * x.numel() * x.element_size() / PEAK_BYTES_S * 1e3
+    d, q = result["dynamic"], result["plain"]
+    print(f"[4c eq] apply_shelf_eq_dynamic vs apply_shelf_eq_padded at ({batch}, 2, {length}), "
+          f"{len(set(n0s))} true lengths: max-abs {err:.3e} (tol {EQ_TOL}); cold (plan cache "
+          f"emptied) {d['cold_s']:.3f} s, {d['plans_added']} plans, free -{d['free_drop_gb']:.2f} "
+          f"GB vs plain {q['cold_s']:.3f} s, {q['plans_added']} plans, free "
+          f"-{q['free_drop_gb']:.2f} GB (beside the allocator {q['outside_gb']:.2f} GB); warm "
+          f"{d['warm_ms']:.2f} ms vs {q['warm_ms']:.2f} ms, bound {bound_ms:.3f} ms (bytes)",
+          flush=True)
+    del x, out
+    clear_plans(torch, device)
+    return {"max_abs": err, "bound_ms": bound_ms, **result}
+
+
+def metered_batch_phase(np, torch, sharding, loudness, bank, clips, device: str = "cuda") -> dict:
+    """render_batch(with_metrics, clip_lengths, pcm16) at B × 60 s with mixed
+    true lengths, EQ off and on; clips 0 and B − 1 against the CPU path, and
+    their masked metrics against the meter on the trimmed output.  Each batch
+    runs cold and again; the EQ-on batch also on B new true lengths in the
+    same bucket, which must add no cuFFT plan (the length-dynamic EQ keys its
+    plans on the bucket).  Then the EQ alone against its plain version
+    (``eq_hold``)."""
+    from audio_raytracing_studio_tpu_torch import RenderParams
+    from audio_raytracing_studio_tpu_torch.ops import filters
+
+    batch, n_in = clips.shape[0], clips.shape[1]
+    # the last ~20% of each clip cut by a different amount (clip 0 keeps all);
+    # the second set cuts each a little less, so no length repeats
+    lengths = [n_in - int(0.2 * n_in * b / (batch - 1)) for b in range(batch)]
+    new_lengths = [n_in - 1 - int(0.19 * n_in * b / (batch - 1)) for b in range(batch)]
+    check(not set(lengths) & set(new_lengths), "4c: the two sets of true lengths overlap")
+
+    def padded_of(lens):
+        padded = clips.copy()
+        for b, tl in enumerate(lens):
+            padded[b, tl:] = 0.0
+        return padded
+
+    pick = [0, batch - 1]
+    on_card = torch.device(device).type == "cuda"
+    timing = {}
     for label, p, fast in (
         ("eq off, fast", RenderParams(target_layout="Stereo"), True),
         ("eq on (bass 1.6, treble 0.7), exact",
          RenderParams(target_layout="Stereo", bass_gain=1.6, treble_gain=0.7), False),
     ):
-        before = bank.launch_count
-        t0 = time.perf_counter()
-        q, metrics = sharding.render_batch(padded, RATE, p, fast_filters=fast,
-                                           with_metrics=True, clip_lengths=lengths,
-                                           pcm16_output=True, device="cuda")
-        wall = time.perf_counter() - t0
-        check(bank.launch_count == before + 1, f"{label}: render_batch did not launch the bank once")
-        # the same call again: cuFFT plans (one per distinct EQ length) now cached
-        t0 = time.perf_counter()
-        sharding.render_batch(padded, RATE, p, fast_filters=fast, with_metrics=True,
-                              clip_lengths=lengths, pcm16_output=True, device="cuda")
-        warm = time.perf_counter() - t0
-        check(q.dtype == np.int16 and q.shape[0] == BATCH and len(metrics) == BATCH,
-              f"{label}: output {q.dtype} {q.shape}, {len(metrics)} metric dicts")
+        sets = [("cold", lengths), ("again", lengths)]
+        if p.bass_gain != 1.0:
+            sets.append(("new lengths", new_lengths))
+        runs = {}
+        for name, lens in sets:
+            padded = padded_of(lens)
+            state = card_state(torch, device)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            before = bank.launch_count
+            t0 = time.perf_counter()
+            q, metrics = sharding.render_batch(padded, RATE, p, fast_filters=fast,
+                                               with_metrics=True, clip_lengths=lens,
+                                               pcm16_output=True, device=device)
+            wall = time.perf_counter() - t0
+            after = card_state(torch, device)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+            check(not on_card or bank.launch_count == before + 1,
+                  f"{label} {name}: render_batch did not launch the bank once")
+            check(q.dtype == np.int16 and q.shape[0] == batch and len(metrics) == batch,
+                  f"{label} {name}: output {q.dtype} {q.shape}, {len(metrics)} metric dicts")
+            runs[name] = {"wall_s": wall, "plans": [state["plans"], after["plans"]],
+                          "free_gb": [state["free_gb"], after["free_gb"]], "peak_gb": peak_gb}
+            print(f"[4c metered] {label}, {name}: render_batch {q.shape} {q.dtype} in "
+                  f"{wall:.3f} s; cuFFT plans {state['plans']} -> {after['plans']}; free "
+                  f"{state['free_gb']:.2f} -> {after['free_gb']:.2f} GB; peak allocated "
+                  f"{peak_gb:.2f} GB; true lengths {min(lens)}..{max(lens)}", flush=True)
+            if name == "cold":
+                cold_q, cold_metrics = q, metrics
+            del q, metrics, padded
+        if "new lengths" in runs:
+            added = runs["new lengths"]["plans"][1] - runs["new lengths"]["plans"][0]
+            check(added == 0, f"{label}: {batch} new true lengths in the bucket added "
+                              f"{added} cuFFT plans")
+        timing[label] = runs
+        q, metrics = cold_q, cold_metrics
         ref, ref_metrics = sharding.render_batch(
-            padded[pick], RATE, p, seeds=pick, fast_filters=fast, with_metrics=True,
+            padded_of(lengths)[pick], RATE, p, seeds=pick, fast_filters=fast, with_metrics=True,
             clip_lengths=[lengths[b] for b in pick], device="cpu",
         )
         ir_len = q.shape[1] - n_in + 1
@@ -551,10 +674,14 @@ def metered_batch_phase(np, torch, sharding, loudness, bank, clips) -> None:
                      max(worst[3], d_trim[2])]
         lufs = [m["lufs"] for m in metrics]
         check(bool(np.isfinite(lufs).all()), f"{label}: non-finite LUFS")
-        print(f"[4c metered] {label}: render_batch {q.shape} {q.dtype} + {len(metrics)} metric "
-              f"dicts in {wall:.2f} s (again, plans cached: {warm:.2f} s); true lengths {lengths[-1]}..{lengths[0]}; clips 0, "
-              f"{BATCH - 1}: card vs CPU max-abs {worst[0]:.3e}, lufs d {worst[1]:.2e} LU; "
-              f"masked vs trimmed lufs d {worst[2]:.2e} LU, rms d {worst[3]:.2e} dB", flush=True)
+        walls = ", ".join(f"{name} {r['wall_s']:.3f} s" for name, r in runs.items())
+        print(f"[4c metered] {label}: {walls}; clips 0, {batch - 1}: card vs CPU max-abs "
+              f"{worst[0]:.3e}, lufs d {worst[1]:.2e} LU; masked vs trimmed lufs d "
+              f"{worst[2]:.2e} LU, rms d {worst[3]:.2e} dB", flush=True)
+        del q, metrics, cold_q, cold_metrics
+    timing["eq"] = eq_hold(np, torch, filters, [tl + ir_len - 1 for tl in lengths],
+                           n_in + ir_len - 1, device)
+    return timing
 
 
 def run_cli(main, argv) -> tuple:
@@ -2923,7 +3050,7 @@ def mesh_phase(np, torch, bank, work: str, device: str = "cuda", batch: int = BA
             padded[b, tl:] = 0.0
         p_eq = RenderParams(target_layout="Stereo", bass_gain=1.6, treble_gain=0.7)
         kw = dict(with_metrics=True, pcm16_output=True, clip_lengths=lengths, device=dev)
-        # in turns: meshless (one cuFFT plan pair per new true length), mesh, meshless
+        # in turns: meshless, mesh, meshless
         (want_q, want_m), w1 = timed(lambda: sharding.render_batch(padded, RATE, p_eq, **kw))
         (q, metrics), m1 = timed(lambda: sharding.render_batch(padded, RATE, p_eq,
                                                                device_mesh=data_mesh, **kw))
@@ -3110,8 +3237,9 @@ def mesh_phase(np, torch, bank, work: str, device: str = "cuda", batch: int = BA
 
 
 def rehearse_cpu(seconds: float) -> int:
-    """``--rehearse-cpu SECONDS``: phases 8, 9, 10, 11 and 12's control flow on
-    the CPU at a short clip length (phase 9's 30-minute clip becomes SECONDS
+    """``--rehearse-cpu SECONDS``: phases 4c, 8, 9, 10, 11 and 12's control flow
+    on the CPU at a short clip length (4c's batch is 4 clips of SECONDS; phase
+    9's 30-minute clip becomes SECONDS
     long, every other length in proportion; phase 10's tools run at their tiny
     sizes, phase 11's clip is SECONDS long, phase 12 runs 8 clips and its long
     render at SECONDS on meshes of ``["cpu"] * N``), with the kernels' plain
@@ -3122,8 +3250,14 @@ def rehearse_cpu(seconds: float) -> int:
     import torch
 
     sys.path.insert(0, REPO)
+    from audio_raytracing_studio_tpu_torch.metering import loudness
     from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda as bank
+    from audio_raytracing_studio_tpu_torch.parallel import sharding
+    from audio_raytracing_studio_tpu_torch.tools.profile_render import bench_clips
 
+    metered = metered_batch_phase(np, torch, sharding, loudness, bank, bench_clips(4, seconds),
+                                  device="cpu")
+    print("[4c rehearsal on the CPU: no device number] " + json.dumps(metered))
     work = tempfile.mkdtemp(prefix="chip_smoke_product_")
     try:
         product = product_phase(np, torch, bank, work, seconds=seconds, device="cpu")
@@ -3156,8 +3290,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["8", "9", "10", "11", "12"], default=None,
                     help="development: phases 1, 2 and this one; prints no result line")
     ap.add_argument("--rehearse-cpu", type=float, default=None, metavar="SECONDS",
-                    help="development: phases 8, 9, 10, 11 and 12's control flow on the "
-                         "CPU at this clip length")
+                    help="development: phases 4c, 8, 9, 10, 11 and 12's control flow on "
+                         "the CPU at this clip length")
     args = ap.parse_args(argv)
     if args.rehearse_cpu is not None:
         return rehearse_cpu(args.rehearse_cpu)
@@ -3389,8 +3523,9 @@ def main(argv=None) -> int:
 
     # --- 4c. metered padded batch through render_batch ---
     bank.launch_count = 0
-    metered_batch_phase(np, torch, sharding, loudness, bank, clips)
+    metered = metered_batch_phase(np, torch, sharding, loudness, bank, clips)
     main_launches += bank.launch_count
+    print("[4c timing] " + json.dumps({"card": card, "nvidia_smi": smi, **metered}), flush=True)
 
     # --- 5. timing on device-resident inputs ---
     audio_t = torch.from_numpy(

@@ -52,7 +52,7 @@ def test_every_port_module_is_listed():
                      "utils._native_vorbis", "utils._native_lavc", "tools.bench_codecs",
                      "parallel.mesh", "parallel.partitioned_conv",
                      "parallel.distributed_fft", "parallel.long_render",
-                     "tools.dryrun_distributed"):
+                     "tools.dryrun_distributed", "ops.chirp"):
         assert f"{port.__name__}.{expected}" in names
 
 
