@@ -33,6 +33,7 @@ from ..params import (
     dry_kill_factor,
     eq_enabled,
 )
+from ..utils import profiling
 from ..utils.runtime import ensure_device
 
 
@@ -107,9 +108,12 @@ def _mix_eq_spatial(
     dry_coef = scal.dry_factor * (1.0 - scal.dry_wet)
     mixed = _col(dry_coef) * dry + _col(scal.dry_wet) * wet
     if eq_dyn is not None:
-        mixed = filters.apply_shelf_eq_dynamic(mixed, scal.bass_gain, scal.treble_gain, eq_dyn)
+        with profiling.trace_span("ars.eq", mixed.device):
+            mixed = filters.apply_shelf_eq_dynamic(mixed, scal.bass_gain, scal.treble_gain,
+                                                   eq_dyn)
     elif spec.eq_on:
-        mixed = filters.apply_shelf_eq(mixed, spec.rate, scal.bass_gain, scal.treble_gain)
+        with profiling.trace_span("ars.eq", mixed.device):
+            mixed = filters.apply_shelf_eq(mixed, spec.rate, scal.bass_gain, scal.treble_gain)
     mixed = filters.conditional_peak_normalize(mixed)
 
     six = spatial.apply_pan(mixed, spatial.pan_matrix(scal.x_pos, scal.y_pos, scal.z_pos))
@@ -133,49 +137,53 @@ def internal_graph_with_irs(
     """
     len_out = spec.len_out
     batch = audio.shape[0]
-    kernels, gains, weights = [], [], []
-    fast_air = spec.air_on and spec.fast_air
-    if fast_air:
-        nfft = convolution.fast_fft_length(
-            max(len_out, audio.shape[-1] + early_ir.shape[-1] - 1)
-        )
-        air_gain = filters.air_absorption_gain(nfft, spec.rate, scal.air_absorption)
-    if spec.early_on:
-        kernels.append(early_ir)
-        weights.append(scal.early_level)
-        if fast_air:
-            gains.append(torch.ones_like(air_gain))
-    if spec.late_on:
-        kernels.append(late_ir)
-        weights.append(scal.late_level)
-        if fast_air:
-            gains.append(air_gain)
-
     exact_air = spec.air_on and not spec.fast_air
-    if kernels and not exact_air:
-        # no per-kernel time-domain stage → fuse the level-weighted kernel
-        # sum in the frequency domain (one inverse FFT per channel)
-        wet = convolution.convolve_combined(
-            audio,
-            torch.stack(kernels, dim=1),
-            torch.stack(weights, dim=1),
-            len_out,
-            kernel_gains=torch.stack(gains, dim=1) if fast_air else None,
-        )
-    elif kernels:
-        # exact air filters the late stream at the exact output length
-        # before the levels combine — keep the per-kernel streams separate
-        conv = convolution.convolve_full(audio, torch.stack(kernels, dim=1), len_out)
+    with profiling.trace_span("ars.conv", audio.device):
+        kernels, gains, weights = [], [], []
+        fast_air = spec.air_on and spec.fast_air
+        if fast_air:
+            nfft = convolution.fast_fft_length(
+                max(len_out, audio.shape[-1] + early_ir.shape[-1] - 1)
+            )
+            air_gain = filters.air_absorption_gain(nfft, spec.rate, scal.air_absorption)
+        if spec.early_on:
+            kernels.append(early_ir)
+            weights.append(scal.early_level)
+            if fast_air:
+                gains.append(torch.ones_like(air_gain))
+        if spec.late_on:
+            kernels.append(late_ir)
+            weights.append(scal.late_level)
+            if fast_air:
+                gains.append(air_gain)
+
+        if kernels and not exact_air:
+            # no per-kernel time-domain stage → fuse the level-weighted kernel
+            # sum in the frequency domain (one inverse FFT per channel)
+            wet = convolution.convolve_combined(
+                audio,
+                torch.stack(kernels, dim=1),
+                torch.stack(weights, dim=1),
+                len_out,
+                kernel_gains=torch.stack(gains, dim=1) if fast_air else None,
+            )
+        elif kernels:
+            # exact air filters the late stream at the exact output length
+            # before the levels combine — keep the per-kernel streams separate
+            conv = convolution.convolve_full(audio, torch.stack(kernels, dim=1), len_out)
+    if kernels and exact_air:
         zeros = torch.zeros((batch, audio.shape[1], len_out), device=audio.device)
         early_wet = conv[:, 0] if spec.early_on else zeros
         late_wet = conv[:, -1] if spec.late_on else zeros
-        late_wet = filters.apply_air_absorption(late_wet, spec.rate, scal.air_absorption)
+        with profiling.trace_span("ars.air", audio.device):
+            late_wet = filters.apply_air_absorption(late_wet, spec.rate, scal.air_absorption)
         wet = early_wet * _col(scal.early_level) + late_wet * _col(scal.late_level)
-    else:
+    elif not kernels:
         wet = torch.zeros((batch, audio.shape[1], len_out), device=audio.device)
 
-    dry = torch.nn.functional.pad(audio, (0, len_out - spec.n_in))
-    return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
+    with profiling.trace_span("ars.back_half", audio.device):
+        dry = torch.nn.functional.pad(audio, (0, len_out - spec.n_in))
+        return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
 
 
 def internal_graph(
@@ -205,9 +213,11 @@ def external_graph(
 
     audio (B, 2, n_in); ir (2, L), shared by the batch → (B, channels, len_out).
     """
-    wet = convolution.convolve_pairwise(audio, ir, spec.len_out)
-    dry = torch.nn.functional.pad(audio, (0, spec.len_out - spec.n_in))
-    return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
+    with profiling.trace_span("ars.conv", audio.device):
+        wet = convolution.convolve_pairwise(audio, ir, spec.len_out)
+    with profiling.trace_span("ars.back_half", audio.device):
+        dry = torch.nn.functional.pad(audio, (0, spec.len_out - spec.n_in))
+        return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
 
 
 def quantize_pcm16(x: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,13 @@ returns a ``fetch()`` that waits on those events alone (``_Download``),
 which is what lets the serving batcher overlap one group's copies with the
 next group's render.  Without a mesh all of it is enqueued on the caller's
 current stream.
+
+Under a torch profiler (``utils.profiling``) each call records its spans:
+``ars.render_batch`` around the call, and inside it ``ars.setup`` (host
+work before anything is enqueued), ``ars.upload``, the graph's ``ars.conv``,
+``ars.air``, ``ars.back_half`` (with ``ars.eq`` inside), ``ars.meter`` and
+``ars.download``, each shard's on its own stream; and it adds the cuFFT
+plans it built to the counter ``ars.fft_plans_built``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from ..models import pipeline
 from ..ops import filters, ir_synth
 from ..ops.ir_synth_cuda import fused_rir_bank
 from ..params import RenderParams, eq_enabled
-from ..utils.runtime import ensure_device
+from ..utils import profiling
+from ..utils.runtime import ensure_device, fft_plan_cache
 from . import mesh as meshlib
 
 IR_BACKENDS = ("bank", "jnp")
@@ -91,23 +99,15 @@ def _batched_internal(
     return pipeline.internal_graph_with_irs(audio, early, late, mix_scalars, spec, eq_dyn)
 
 
-def _meter_and_quantize(out: torch.Tensor, rate: int, with_metrics: bool, pcm16: bool,
-                        valid_lens: Optional[Sequence[int]]):
-    """Shared epilogue: meter each clip (masked to its true output length
-    when given — zero-padded tails stay out of the measurement), then
-    optionally quantize to the int16 output contract on the device."""
-    metrics = None
-    if with_metrics:
-        if valid_lens is None:
-            metrics = loudness.audio_metrics(out, rate)
-        else:
-            # block counts are float64 host math (kweighting.block_count)
-            blocks = [kw.block_count(v, rate) for v in valid_lens]
-            as_t = lambda xs: ir_synth.to_device(np.asarray(xs, np.int64), out.device)  # noqa: E731
-            metrics = loudness.audio_metrics_masked(out, rate, as_t(valid_lens), as_t(blocks))
-    if pcm16:
-        out = pipeline.quantize_pcm16(out)
-    return out, metrics
+def _meter(out: torch.Tensor, rate: int, valid_lens: Optional[Sequence[int]]) -> dict:
+    """Meter each clip (masked to its true output length when given —
+    zero-padded tails stay out of the measurement)."""
+    if valid_lens is None:
+        return loudness.audio_metrics(out, rate)
+    # block counts are float64 host math (kweighting.block_count)
+    blocks = [kw.block_count(v, rate) for v in valid_lens]
+    as_t = lambda xs: ir_synth.to_device(np.asarray(xs, np.int64), out.device)  # noqa: E731
+    return loudness.audio_metrics_masked(out, rate, as_t(valid_lens), as_t(blocks))
 
 
 def staging_clips(batch: int, n: int, channels: int, device) -> np.ndarray:
@@ -252,9 +252,58 @@ def render_batch(
     Returns (B, len_out, channels) float32 (int16 with ``pcm16_output``) —
     plus a list of per-clip metric dicts with ``with_metrics``.
     """
+    dev = ensure_device(device)
+    with profiling.trace_span("ars.render_batch", dev):
+        # the set-up enqueues nothing: its stream time is the stream waiting
+        # for the host, kept out of the call's self time
+        with profiling.trace_span("ars.setup", dev):
+            shards, n_real, render_rows = _setup_batch(
+                audio, rate, params, seeds, device_mesh, ir_backend, fast_filters,
+                external_ir, external_ir_rate, clip_lengths, real_batch, dev)
+        plans_before = _fft_plans(dev, device_mesh) if profiling.spans_on() else None
+        download = _Download(n_real)
+        for rows, on_shard in shards:
+            with on_shard as here:
+                out, valid_lens = render_rows(rows, here)
+                keep = min(rows.stop, n_real) - rows.start
+                if keep <= 0:  # pad rows only: rendered, never metered or copied
+                    continue
+                if keep < out.shape[0]:
+                    out = out[:keep]
+                    valid_lens = None if valid_lens is None else valid_lens[:keep]
+                metrics = None
+                if with_metrics:
+                    with profiling.trace_span("ars.meter", here):
+                        metrics = _meter(out, int(rate), valid_lens)
+                with profiling.trace_span("ars.download", here):
+                    if pcm16_output:
+                        out = pipeline.quantize_pcm16(out)
+                    download.put(rows.start, out, metrics)
+        if plans_before is not None:
+            profiling.counter_add("ars.fft_plans_built",
+                                  _fft_plans(dev, device_mesh) - plans_before)
+    return download.fetch if async_results else download.fetch()
+
+
+def _fft_plans(dev: torch.device, device_mesh) -> Optional[int]:
+    """The plans in the cuFFT caches of the cards a call renders on (each
+    card once), or None off a card."""
+    if dev.type != "cuda":
+        return None
+    devices = [dev] if device_mesh is None else [d for row in device_mesh.devices for d in row]
+    caches = {c.device_index: c for c in map(fft_plan_cache, devices)}
+    return sum(int(c.size) for c in caches.values())
+
+
+def _setup_batch(audio, rate, params, seeds, device_mesh, ir_backend, fast_filters,
+                 external_ir, external_ir_rate, clip_lengths, real_batch, dev):
+    """``render_batch``'s host work before anything is enqueued: the checks,
+    each clip's host-derived setup, the batch-wide spec, the seeds and the
+    host side of the per-clip scalar tables → (shards, the number of real
+    rows, ``render_rows(rows, device)``, which enqueues the render of
+    ``rows`` → (out, their true output lengths or None))."""
     if ir_backend not in IR_BACKENDS:
         raise ValueError(f"ir_backend must be one of {IR_BACKENDS}, got {ir_backend!r}")
-    dev = ensure_device(device)
     if device_mesh is not None:
         axis = meshlib.check_mesh(device_mesh, dev).axis(meshlib.DATA_AXIS)
 
@@ -284,19 +333,28 @@ def render_batch(
     )
     eq_rows = {}  # ir_length → per-clip host EQDyn rows, built once per call
 
+    def eq_host(ir_length: int) -> None:
+        """Build the per-clip host EQ rows for ``ir_length`` (padded EQ-on
+        batches only)."""
+        if padded_eq and ir_length not in eq_rows:
+            eq_rows[ir_length] = [filters.eq_dyn_host(n0, rate)
+                                  for n0 in true_lengths(ir_length)]
+
     def eq_dyn(ir_length: int, rows: slice, here: torch.device):
         """The length-dynamic EQ's scalars for ``rows`` on ``here`` when a
         padded clip has EQ on, else None (the static EQ at the buffer
         length is then exact for every clip)."""
         if not padded_eq:
             return None
-        if ir_length not in eq_rows:
-            eq_rows[ir_length] = [filters.eq_dyn_host(n0, rate)
-                                  for n0 in true_lengths(ir_length)]
+        eq_host(ir_length)
         return filters.EQDyn.stack(eq_rows[ir_length][rows], here)
 
     def rows_of(values, rows: slice):
         return None if values is None else values[rows]
+
+    def mix_rows(mix_host, rows: slice, here: torch.device) -> pipeline.MixScalars:
+        """``MixScalars.stack`` of ``rows``, from its host columns."""
+        return pipeline.MixScalars(*(ir_synth.to_device(col[rows], here) for col in mix_host))
 
     if any(p.use_external_ir for p in param_list):
         if not all(p.use_external_ir for p in param_list):
@@ -309,17 +367,17 @@ def render_batch(
                 "(shape-determining); bucket your batch by layout"
             )
         eq_on = any(eq_enabled(p.bass_gain, p.treble_gain) for p in param_list)
+        mix_host = _host_columns([pipeline._mix_scalars(p, 1.0, 1.0) for p in param_list])
 
         def render_rows(rows: slice, here: torch.device):
             ir = pipeline.prepare_external_ir(external_ir, external_ir_rate or rate, rate, here)
             ir_length = ir.shape[0]
             spec = pipeline.external_spec(param_list[0], rate, n_in, ir_length)._replace(
                 eq_on=eq_on)
-            mix = pipeline.MixScalars.stack(
-                [pipeline._mix_scalars(p, 1.0, 1.0) for p in param_list[rows]], here
-            )
-            out = pipeline.external_graph(_stage_clips(audio[rows], here), ir.T, mix, spec,
-                                          eq_dyn(ir_length, rows, here))
+            mix = mix_rows(mix_host, rows, here)
+            with profiling.trace_span("ars.upload", here):
+                clips = _stage_clips(audio[rows], here)
+            out = pipeline.external_graph(clips, ir.T, mix, spec, eq_dyn(ir_length, rows, here))
             return out, rows_of(true_lengths(ir_length), rows)
     else:
         setups = [
@@ -357,13 +415,18 @@ def render_batch(
             raise ValueError(f"{len(seeds)} seeds for batch of {batch}")
         seeds32 = ir_synth.seeds_to_int32(seeds)
         ir_length = spec.ir_length
+        ir_host = ir_synth.IRScalars.stack([s.ir_scalars for s in setups])
+        mix_host = _host_columns([s.mix_scalars for s in setups])
+        eq_host(ir_length)
 
         def render_rows(rows: slice, here: torch.device):
+            with profiling.trace_span("ars.upload", here):
+                clips = _stage_clips(audio[rows], here)
             out = _batched_internal(
-                _stage_clips(audio[rows], here),
+                clips,
                 ir_synth.to_device(seeds32[rows], here),
-                ir_synth.IRScalars.stack([s.ir_scalars for s in setups[rows]]),
-                pipeline.MixScalars.stack([s.mix_scalars for s in setups[rows]], here),
+                ir_synth.IRScalars(*(col[rows] for col in ir_host)),
+                mix_rows(mix_host, rows, here),
                 shape0,
                 spec,
                 ir_backend=ir_backend,
@@ -376,17 +439,10 @@ def render_batch(
     else:
         shards = [(rows, axis.on(k))
                   for k, rows in enumerate(meshlib.shard_rows(device_mesh, batch))]
-    download = _Download(n_real)
-    for rows, on_shard in shards:
-        with on_shard as here:
-            out, valid_lens = render_rows(rows, here)
-            keep = min(rows.stop, n_real) - rows.start
-            if keep <= 0:  # pad rows only: rendered, never metered or copied
-                continue
-            if keep < out.shape[0]:
-                out = out[:keep]
-                valid_lens = rows_of(valid_lens, slice(0, keep))
-            out, metrics = _meter_and_quantize(out, int(rate), with_metrics, pcm16_output,
-                                               valid_lens)
-            download.put(rows.start, out, metrics)
-    return download.fetch if async_results else download.fetch()
+    return shards, n_real, render_rows
+
+
+def _host_columns(entries) -> list:
+    """Per-clip rows of scalars → one float32 host array per field, as
+    ``MixScalars.stack`` makes them before its upload."""
+    return [np.asarray(col, dtype=np.float32) for col in zip(*entries)]

@@ -76,7 +76,7 @@ from ..models import pipeline
 from ..parallel import mesh as meshlib
 from ..parallel import sharding
 from ..params import RenderParams
-from ..utils.runtime import ensure_device
+from ..utils.runtime import ensure_device, fft_plan_cache
 
 log = logging.getLogger("ars_torch.serving")
 
@@ -135,12 +135,6 @@ def _untrack_result(svc_ref, nbytes: int):
             svc._retained_results -= 1
 
 
-def _plan_cache(dev: torch.device):
-    """The cuFFT plan cache of a CUDA device."""
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    return torch.backends.cuda.cufft_plan_cache[index]
-
-
 def memory_stats(device="cpu") -> Dict[str, Any]:
     """Process and runtime memory snapshot, merged into ``stats()``.
 
@@ -165,7 +159,7 @@ def memory_stats(device="cpu") -> Dict[str, Any]:
     out.update(device_allocated_mb=0.0, device_reserved_mb=0.0, fft_plans=0,
                fft_plans_max=0, pinned_mb=0.0)
     if dev.type == "cuda":
-        plans = _plan_cache(dev)
+        plans = fft_plan_cache(dev)
         out.update(
             device_allocated_mb=round(torch.cuda.memory_allocated(dev) / 1e6, 1),
             device_reserved_mb=round(torch.cuda.memory_reserved(dev) / 1e6, 1),
@@ -281,7 +275,7 @@ class RenderService:
             devices = {self.device} if device_mesh is None else {
                 d for row in device_mesh.devices for d in row}
             for dev in devices:
-                plans = _plan_cache(dev)
+                plans = fft_plan_cache(dev)
                 plans.max_size = min(int(plans.max_size), FFT_PLAN_CACHE_MAX)
         self._groups_dispatched = 0  # picks the next group's stream
         self._q: "queue.Queue" = queue.Queue()

@@ -38,6 +38,13 @@ def ensure_device(device="cuda") -> torch.device:
     return dev
 
 
+def fft_plan_cache(dev: torch.device):
+    """The cuFFT plan cache of a CUDA device (the current device when
+    ``dev`` names no index)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return torch.backends.cuda.cufft_plan_cache[index]
+
+
 def default_device() -> str:
     """The process-wide device of the surfaces without a ``device`` argument.
 

@@ -3553,10 +3553,10 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         wall, settle, runs = settled_wall(
             torch,
-            lambda: sharding._meter_and_quantize(
+            lambda: sharding._meter(
                 sharding._batched_internal(audio_t, seeds_t, ir_sc, mix, setup.ir_shape,
                                            setup.spec),
-                RATE, True, False, None,
+                RATE, None,
             ),
         )
         timing[f"rtf_{mode}_metered"] = BATCH * DURATION_S / wall
