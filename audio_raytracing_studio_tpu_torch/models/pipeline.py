@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..ops import convolution, filters, ir_synth, spatial
+from ..ops import back_half_cuda, convolution, filters, ir_synth
 from ..ops.ir_synth_cuda import fused_rir_bank
 from ..params import (
     IRDraws,
@@ -92,35 +92,32 @@ def _col(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mix_eq_spatial(
-    dry: torch.Tensor,
+    audio: torch.Tensor,
     wet: torch.Tensor,
     scal: MixScalars,
     spec: StaticSpec,
     eq_dyn: Optional[filters.EQDyn] = None,
 ) -> torch.Tensor:
-    """Shared back half: dry/wet mix → EQ → normalize → pan → map (B, C, N).
+    """Shared back half: dry/wet mix → EQ → normalize → pan → map (B, C, N),
+    through ``ops.back_half_cuda.back_half`` (the CUDA kernels on a card).
 
+    audio (B, 2, n_in), the dry signal, zero past n_in; wet (B, 2, N).
     ``eq_dyn``: per-clip true output lengths and band edges of a
     zero-padded batch — the EQ then runs on each clip at its true length
     (zeros past it), overriding ``spec.eq_on``
     (``filters.apply_shelf_eq_dynamic``).
     """
-    dry_coef = scal.dry_factor * (1.0 - scal.dry_wet)
-    mixed = _col(dry_coef) * dry + _col(scal.dry_wet) * wet
+    eq = None
     if eq_dyn is not None:
-        with profiling.trace_span("ars.eq", mixed.device):
-            mixed = filters.apply_shelf_eq_dynamic(mixed, scal.bass_gain, scal.treble_gain,
-                                                   eq_dyn)
+        def eq(mixed):
+            with profiling.trace_span("ars.eq", mixed.device):
+                return filters.apply_shelf_eq_dynamic(mixed, scal.bass_gain, scal.treble_gain,
+                                                      eq_dyn)
     elif spec.eq_on:
-        with profiling.trace_span("ars.eq", mixed.device):
-            mixed = filters.apply_shelf_eq(mixed, spec.rate, scal.bass_gain, scal.treble_gain)
-    mixed = filters.conditional_peak_normalize(mixed)
-
-    six = spatial.apply_pan(mixed, spatial.pan_matrix(scal.x_pos, scal.y_pos, scal.z_pos))
-    six = filters.conditional_peak_normalize(six)
-
-    out = spatial.map_layout(six, spec.layout, spec.rate, scal.z_pos)
-    return filters.conditional_peak_normalize(out)
+        def eq(mixed):
+            with profiling.trace_span("ars.eq", mixed.device):
+                return filters.apply_shelf_eq(mixed, spec.rate, scal.bass_gain, scal.treble_gain)
+    return back_half_cuda.back_half(audio, wet, scal, spec.layout, spec.rate, eq)
 
 
 def internal_graph_with_irs(
@@ -182,8 +179,7 @@ def internal_graph_with_irs(
         wet = torch.zeros((batch, audio.shape[1], len_out), device=audio.device)
 
     with profiling.trace_span("ars.back_half", audio.device):
-        dry = torch.nn.functional.pad(audio, (0, len_out - spec.n_in))
-        return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
+        return _mix_eq_spatial(audio, wet, scal, spec, eq_dyn)
 
 
 def internal_graph(
@@ -216,8 +212,7 @@ def external_graph(
     with profiling.trace_span("ars.conv", audio.device):
         wet = convolution.convolve_pairwise(audio, ir, spec.len_out)
     with profiling.trace_span("ars.back_half", audio.device):
-        dry = torch.nn.functional.pad(audio, (0, spec.len_out - spec.n_in))
-        return _mix_eq_spatial(dry, wet, scal, spec, eq_dyn)
+        return _mix_eq_spatial(audio, wet, scal, spec, eq_dyn)
 
 
 def quantize_pcm16(x: torch.Tensor) -> torch.Tensor:

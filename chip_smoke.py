@@ -34,12 +34,15 @@ Drives the port's paths at full size and checks them:
 - the device mesh, one card standing in for N devices
   (``make_mesh(devices=["cuda:0"] * N)``): the data-parallel
   ``render_batch`` and ``RenderService`` over it, the sequence-parallel
-  ``render_long``, the partitioned convolution and both dry runs.
+  ``render_long``, the partitioned convolution and both dry runs;
+- the back half's kernels (``csrc/back_half.cu``) at the cells' shapes
+  against their plain version.
 
 Phases, one line each:
 
 1. environment: torch/CUDA versions, card name and power limit, TF32 off;
-2. build: compiles ``csrc/rir_bank.cu`` (both launchers) with nvcc and,
+2. build: compiles ``csrc/rir_bank.cu`` and ``csrc/back_half.cu`` (both
+   launchers of each) with nvcc and,
    beside it in a thread, the codecs' host libraries with g++
    (``wavio.warm_native``: native PCM16, FLAC, Vorbis, the FFmpeg shim), so
    no timed call of a later phase pays for a build;
@@ -230,10 +233,18 @@ Phases, one line each:
    arms; 12e ``graft_entry.dryrun_multichip(8, devices=["cuda:0"] * 8)`` and
    ``tools.dryrun_distributed --device cuda`` (two gloo processes on the one
    card).  The bank is held to its plain version at every (shape, batch) the
-   phase called it with.  ``[12 timing]``.
+   phase called it with.  ``[12 timing]``;
+13. the back half's kernels (``ops/back_half_cuda.back_half``) on the
+   render path's own inputs at B=48 × 2,951,999 Stereo, at B=1 and at
+   B=48 × 3,155,898 5.1 with the EQ hook (the identity, so that only the
+   kernels' work is timed); each also with the wet signal ×4: bit-equal to
+   ``back_half_plain`` (``torch.equal``), counted once a call, CUDA-event
+   times in turns with the plain version, the split by pass
+   (torch.profiler), the bytes bound and the share, and how many clips
+   each normalization scales.  ``[13 back half] ...`` lines, ``[13 timing]``.
 
 Development options (a run with either prints no result line):
-``--only 8`` … ``--only 12`` runs phases 1, 2 and that phase;
+``--only 8`` … ``--only 13`` runs phases 1, 2 and that phase;
 ``--rehearse-cpu SECONDS`` walks phases 4c and 8 to 12's control flow on the
 CPU at a short clip length.
 
@@ -583,6 +594,156 @@ def eq_hold(np, torch, filters, n0s, length: int, device: str) -> dict:
     del x, out
     clear_plans(torch, device)
     return {"max_abs": err, "bound_ms": bound_ms, **result}
+
+
+def back_half_bound(batch: int, n_in: int, n: int, channels: int, eq: bool) -> dict:
+    """The least time the back half could take at this shape: dry (B, 2,
+    n_in) and wet (B, 2, n) read once, the (B, channels, n) layout written
+    once and, with the EQ, the mix written and read back once more; against
+    the operations of one pass over the samples (mix 6, pan 18, map and the
+    three normalizations about 4 per output channel) at the float32 rate.
+    ``design_ms``: the bytes of the kernels' four passes (each re-reads its
+    input; with the EQ the mix reads dry and wet once and A-D the EQ'd mix)."""
+    dry, wet, out = 8 * batch * n_in, 8 * batch * n, 4 * batch * channels * n
+    nbytes = dry + wet + out + (2 * wet if eq else 0)
+    design = (dry + 2 * wet + 4 * wet + out) if eq else (4 * (dry + wet) + out)
+    ops = batch * n * (24 + 4 * channels)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops, "design_bytes": design,
+            "design_ms": 1e3 * design / PEAK_BYTES_S}
+
+
+def back_half_scales(torch, filters, spatial, audio, wet, scal, layout, rate, eq) -> list:
+    """How many clips each of the three normalizations rescales (max > 1) or
+    zeroes (max < 1e-9): the plain chain's maxima, stage by stage."""
+    dry = torch.nn.functional.pad(audio, (0, wet.shape[-1] - audio.shape[-1]))
+    mixed = (scal.dry_factor * (1.0 - scal.dry_wet))[:, None, None] * dry \
+        + scal.dry_wet[:, None, None] * wet
+    stages = [eq(mixed) if eq is not None else mixed]
+    six = spatial.apply_pan(filters.conditional_peak_normalize(stages[0]),
+                            spatial.pan_matrix(scal.x_pos, scal.y_pos, scal.z_pos))
+    stages.append(six)
+    stages.append(spatial.map_layout(filters.conditional_peak_normalize(six), layout, rate,
+                                     scal.z_pos))
+    fired = []
+    for x in stages:
+        m = x.abs().amax(dim=(1, 2))
+        fired.append({"scaled": int((m > 1.0).sum()), "zeroed": int((m < 1e-9).sum())})
+    return fired
+
+
+def back_half_split(torch, fn, iters: int = 5) -> dict:
+    """Device ms per call of each of the back half's kernels (pass A-D, the
+    EQ's mix), by torch.profiler, after a warm-up call."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per = {}
+    for _ in range(3):  # a profiling window now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            found = re.search(r"back_half_kernel<(\d+), (true|false), (\d)>", e.name)
+            key = ("pass " + "ABCD"[int(found.group(3))] if found
+                   else "mix" if "mix_kernel" in e.name else None)
+            if key:
+                per[key] = per.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+        if per:
+            break
+    check("pass D" in per, f"the profiler saw the back half's kernels {sorted(per)}")
+    return per
+
+
+def back_half_phase(np, torch, clips) -> dict:
+    """Phase 13: the back half's kernels at the cells' shapes, their inputs
+    taken from the render path itself (``_batched_internal`` up to the back
+    half): B=48 × 2,951,999 Stereo from mono (batch48), the same at B=1, and
+    B=48 × 3,155,898 5.1 after the exact EQ (the padded cell's shape, the EQ
+    replaced by the identity for the timing so that only the kernels' work
+    counts).  Each: bit-equal to the plain version (``torch.equal``), the
+    launch count, the kernels' time by CUDA events in turns with the plain
+    version, the split by pass, the bound and the share, and which
+    normalizations fire on these inputs; then the same with the wet signal
+    ×4, where every clip takes passes B and C."""
+    from audio_raytracing_studio_tpu_torch import RenderParams
+    from audio_raytracing_studio_tpu_torch.models import pipeline
+    from audio_raytracing_studio_tpu_torch.ops import back_half_cuda, filters, ir_synth, spatial
+    from audio_raytracing_studio_tpu_torch.parallel import sharding
+
+    n_in = int(DURATION_S * RATE)
+    cells = (
+        ("batch48", RenderParams(target_layout="Stereo"), BATCH, True),
+        ("batch48_b1", RenderParams(target_layout="Stereo"), 1, True),
+        ("padded", RenderParams(hall_type="Cathedral", room_size=300.0, bass_gain=1.6,
+                                treble_gain=0.7, target_layout="5.1 (Standard)"), BATCH, False),
+    )
+    result = {}
+    for label, p, batch, mono in cells:
+        setup = pipeline.build_internal_setup(p, RATE, n_in)
+        host = clips[:batch] if mono else np.stack([clips[:batch], clips[::-1][:batch]], -1)
+        audio = torch.from_numpy(
+            np.stack([pipeline._ensure_stereo_host(c).T for c in host])).cuda()
+        ir_sc = ir_synth.IRScalars.stack([setup.ir_scalars] * batch)
+        scal = pipeline.MixScalars.stack([setup.mix_scalars] * batch, "cuda")
+        seeds = torch.arange(batch, dtype=torch.int32, device="cuda")
+        taken = {}
+        real = back_half_cuda.back_half
+
+        def capture(audio_, wet, scal_, layout, rate, eq=None):
+            taken.update(wet=wet, layout=layout, eq=eq)
+            return real(audio_, wet, scal_, layout, rate, eq)
+
+        pipeline.back_half_cuda.back_half = capture
+        try:
+            sharding._batched_internal(audio, seeds, ir_sc, scal, setup.ir_shape, setup.spec)
+        finally:
+            pipeline.back_half_cuda.back_half = real
+        wet, layout = taken["wet"], taken["layout"]
+        eq_on = taken["eq"] is not None
+        check(eq_on == setup.spec.eq_on, f"{label}: the EQ hook {eq_on}")
+        channels = len(spatial.layout_channel_names(layout))
+        bound = back_half_bound(batch, n_in, wet.shape[-1], channels, eq_on)
+        for loud in (1.0, 4.0):
+            w = wet * loud if loud != 1.0 else wet
+            eq = (lambda m: m) if eq_on else None
+            key = label if loud == 1.0 else f"{label}_wet_x4"
+            before = back_half_cuda.launch_count
+            got = back_half_cuda.back_half(audio, w, scal, layout, RATE, eq)
+            want = back_half_cuda.back_half_plain(audio, w, scal, layout, RATE, eq)
+            torch.cuda.synchronize()
+            check(back_half_cuda.launch_count == before + 1, f"{key}: not counted once")
+            check(torch.equal(got, want), f"{key}: kernel and plain version differ")
+            err = float((got - want).abs().max())
+            fired = back_half_scales(torch, filters, spatial, audio, w, scal, layout, RATE,
+                                     taken["eq"] if loud == 1.0 else eq)
+            del got, want
+            ms, plain_ms, runs = turns(
+                torch, lambda: back_half_cuda.back_half(audio, w, scal, layout, RATE, eq),
+                lambda: back_half_cuda.back_half_plain(audio, w, scal, layout, RATE, eq),
+                kernel_iters=20, plain_iters=5)
+            split = back_half_split(torch, lambda: back_half_cuda.back_half(
+                audio, w, scal, layout, RATE, eq))
+            result[key] = {
+                "shape": [batch, 2, n_in, wet.shape[-1], channels], "layout": layout,
+                "eq": eq_on, "equal": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "runs": runs,
+                "split_ms": split, "fired": fired, **bound,
+                "share_pct": 100.0 * bound["bound_ms"] / ms,
+                "design_share_pct": 100.0 * bound["design_ms"] / ms,
+            }
+            print(f"[13 back half] {key}: {json.dumps(result[key])}", flush=True)
+            del w
+        del audio, wet, taken
+        torch.cuda.empty_cache()
+    return result
 
 
 def metered_batch_phase(np, torch, sharding, loudness, bank, clips, device: str = "cuda") -> dict:
@@ -3287,7 +3448,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / CUDA port on one GPU; "
                                  "with no arguments every phase runs and the result lines print.")
-    ap.add_argument("--only", choices=["8", "9", "10", "11", "12"], default=None,
+    ap.add_argument("--only", choices=["8", "9", "10", "11", "12", "13"], default=None,
                     help="development: phases 1, 2 and this one; prints no result line")
     ap.add_argument("--rehearse-cpu", type=float, default=None, metavar="SECONDS",
                     help="development: phases 4c, 8, 9, 10, 11 and 12's control flow on "
@@ -3307,7 +3468,7 @@ def main(argv=None) -> int:
     from audio_raytracing_studio_tpu_torch import RenderParams
     from audio_raytracing_studio_tpu_torch.metering import loudness
     from audio_raytracing_studio_tpu_torch.models import pipeline
-    from audio_raytracing_studio_tpu_torch.ops import ir_synth
+    from audio_raytracing_studio_tpu_torch.ops import back_half_cuda, ir_synth
     from audio_raytracing_studio_tpu_torch.ops import ir_synth_cuda as bank
     from audio_raytracing_studio_tpu_torch.parallel import sharding
     from audio_raytracing_studio_tpu_torch.tools.profile_render import bench_clips
@@ -3335,10 +3496,13 @@ def main(argv=None) -> int:
         host = pool.submit(wavio.warm_native)
         lib = kernels.build("rir_bank")
         bank._launcher(), bank._injected_launcher()  # both symbols bind
+        back_lib = kernels.build("back_half")
+        back_half_cuda._launchers()  # both symbols bind
         nvcc_s = time.perf_counter() - t0
         host_builds = host.result()
     print(f"[2 build] {os.path.relpath(lib, REPO)} (rir_bank_launch, "
-          f"rir_bank_injected_launch) in {nvcc_s:.2f} s; host libraries "
+          f"rir_bank_injected_launch), {os.path.relpath(back_lib, REPO)} (back_half_launch, "
+          f"back_half_mix_launch) in {nvcc_s:.2f} s; host libraries "
           f"{json.dumps(host_builds)}; both in {time.perf_counter() - t0:.2f} s", flush=True)
 
     def product():
@@ -3410,9 +3574,19 @@ def main(argv=None) -> int:
             "bank_errs": result["bank_errs"]}), flush=True)
         return result
 
+    def back_half():
+        """Phase 13: the back half's kernels at the cells' shapes."""
+        t0, before = time.perf_counter(), back_half_cuda.launch_count
+        result = back_half_phase(np, torch, bench_clips(BATCH, DURATION_S))
+        print("[13 timing] " + json.dumps({"card": card, "nvidia_smi": smi,
+                                           "wall_s": time.perf_counter() - t0,
+                                           "launches": back_half_cuda.launch_count - before}),
+              flush=True)
+        return result
+
     if args.only is not None:
         {"8": product, "9": long_clips, "10": lambda: tools({}), "11": codecs,
-         "12": meshes}[args.only]()
+         "12": meshes, "13": back_half}[args.only]()
         print(f"chip_smoke: --only {args.only} ran phases 1, 2 and {args.only}; a partial run "
               "prints no result line")
         return 0
@@ -3475,12 +3649,16 @@ def main(argv=None) -> int:
     len_out = bench_setup.spec.len_out
     outputs = {}
     bank.launch_count = 0
+    back_half_cuda.launch_count = 0  # from here to phase 13: the back halves of phases 4-12
     for fast in (True, False):
         before = bank.launch_count
+        back_before = back_half_cuda.launch_count
         t0 = time.perf_counter()
         out = sharding.render_batch(clips, RATE, p, fast_filters=fast, device="cuda")
         wall = time.perf_counter() - t0
         check(bank.launch_count == before + 1, "render_batch did not launch the bank once")
+        check(back_half_cuda.launch_count == back_before + 1,
+              "render_batch did not launch the back half's kernels once")
         outputs[fast] = out
         mode = "fast" if fast else "exact"
         check(out.shape == (BATCH, len_out, 2), f"{mode} output shape {out.shape}")
@@ -3679,6 +3857,12 @@ def main(argv=None) -> int:
     main_launches += meshed["launches"]
     bank_err = max(bank_err, meshed["bank_errs"][0])
 
+    # --- 13. the back half's kernels at the cells' shapes ---
+    back_launches = back_half_cuda.launch_count  # phases 4-12; phase 13's direct calls left out
+    check(back_launches > 0, "no render of phases 4-12 launched the back half's kernels")
+    torch.cuda.empty_cache()
+    back = back_half()
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "audio_raytracing_studio_tpu"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign}")
@@ -3708,6 +3892,18 @@ def main(argv=None) -> int:
         "bound_ms": timing["bounds"]["bench_injected"]["bound_ms"],
         "bound_by": timing["bounds"]["bench_injected"]["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "back_half",
+        "route": "cuda",
+        "source": "audio_raytracing_studio_tpu_torch/csrc/back_half.cu",
+        "replaces": None,  # the JAX package's back half is jnp under XLA's fusion
+        "launches": back_launches,  # every render on the card in phases 4 to 12
+        "max_abs_err": max(v["max_abs_err"] for v in back.values()),  # phase 13's shapes
+        "ms": back["batch48"]["ms"],
+        "plain_ms": back["batch48"]["plain_ms"],
+        "bound_ms": back["batch48"]["bound_ms"],
+        "bound_by": back["batch48"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the back half
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -737,3 +737,158 @@ def test_render_long_on_card_matches_single_shot(cuda):
     assert out.shape == exact.shape
     assert np.abs(out - exact).max() <= ORACLE_TOL
     assert abs(metrics["lufs"] - solo["lufs"]) <= 0.02
+
+
+# --- the back half: csrc/back_half.cu against its plain version ---------------
+
+BACK_HALF_LAYOUTS = ("Stereo", "5.1 (Standard)", "7.1 (Surround)", "5.1.2 (Atmos Light)")
+
+
+def back_half_inputs(batch: int, n_in: int, n: int, seed: int, cuda):
+    """(dry (B, 2, n_in), wet (B, 2, n), MixScalars) on the card, one clip
+    per path through the kernels' passes: 0 loud (the first two
+    normalizations scale: positions at the corner where the front-left gain
+    is 1.075), 1 quiet (no normalization scales), 2 below 1e-9 (zeroed),
+    3 the pan alone over 1 (wet only, peak 0.97, corner), 4 the Stereo map
+    alone over 1 (wet only, equal channels, peak 0.95, centre), the rest
+    drawn at random; a smaller batch keeps its first clips."""
+    from audio_raytracing_studio_tpu_torch.models.pipeline import MixScalars
+
+    r = np.random.default_rng(seed)
+    dry = r.uniform(-1.0, 1.0, (batch, 2, n_in)).astype(np.float32)
+    wet = r.uniform(-1.0, 1.0, (batch, 2, n)).astype(np.float32)
+    cols = {f: r.uniform(0.0, 1.0, batch).astype(np.float32) for f in MixScalars._fields}
+    for b, level in ((0, 3.0), (1, 0.2), (2, 1e-11))[:batch]:
+        dry[b] *= level
+        wet[b] *= level
+    if batch > 4:
+        wet[3] *= 0.97 / np.abs(wet[3]).max()
+        wet[4, 1] = wet[4, 0] = wet[4, 0] * (0.95 / np.abs(wet[4, 0]).max())
+        cols["dry_wet"][3:5] = 1.0  # the mix is the wet signal, bit for bit
+    for b, pos in ((0, 0.0), (3, 0.0), (4, 0.5))[:batch]:
+        for f in ("x_pos", "y_pos", "z_pos"):
+            cols[f][b] = pos
+    scal = MixScalars(*(torch.from_numpy(cols[f]).to(cuda) for f in MixScalars._fields))
+    return torch.from_numpy(dry).to(cuda), torch.from_numpy(wet).to(cuda), scal
+
+
+def assert_bit_equal(got, want):
+    """torch.equal on the bit patterns, with NaN where the plain version has
+    NaN (torch.equal alone reads NaN as unequal to itself)."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.masked_fill(nan, 0.0).view(torch.int32),
+                       want.masked_fill(nan, 0.0).view(torch.int32))
+    if not nan.any():
+        assert torch.equal(got, want)
+
+
+def back_half_pair(dry, wet, scal, layout, eq, rate=48000):
+    from audio_raytracing_studio_tpu_torch.ops import back_half_cuda
+
+    before = back_half_cuda.launch_count
+    got = back_half_cuda.back_half(dry, wet, scal, layout, rate, eq)
+    want = back_half_cuda.back_half_plain(dry, wet, scal, layout, rate, eq)
+    torch.cuda.synchronize()
+    assert back_half_cuda.launch_count == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("batch, n_in, n", [
+    (5, 1, 1),            # one sample: every delayed sample is a zero
+    (6, 300, 577),        # shorter than the 12 / 18 ms delays at 48 kHz
+    (5, 2048, 4097),      # one past a block's span
+    (7, 4095, 12289),     # odd, across three spans
+], ids=["n1", "n577", "n4097", "n12289"])
+@pytest.mark.parametrize("eq_on", [False, True], ids=["eq-off", "eq-on"])
+@pytest.mark.parametrize("layout", BACK_HALF_LAYOUTS)
+def test_back_half_kernel_matches_plain(cuda, layout, eq_on, batch, n_in, n):
+    from audio_raytracing_studio_tpu_torch.ops import filters
+
+    dry, wet, scal = back_half_inputs(batch, n_in, n, seed=n + batch, cuda=cuda)
+
+    def eq(mixed):
+        return filters.apply_shelf_eq(mixed, 48000, scal.bass_gain, scal.treble_gain)
+
+    got, want = back_half_pair(dry, wet, scal, layout, eq if eq_on else None)
+    assert_bit_equal(got, want)
+    assert not got[2].any()
+    if not eq_on:
+        assert float(got[:2].abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("layout", BACK_HALF_LAYOUTS)
+def test_back_half_kernel_non_finite_clips(cuda, layout):
+    """A NaN passes its clip unscaled (NaN > 1 is false); an inf scales its
+    clip by 0 (inf·0 is NaN); the other clips are untouched by either."""
+    dry, wet, scal = back_half_inputs(6, 3000, 3500, seed=9, cuda=cuda)
+    wet[1, 0, 1234] = float("nan")
+    dry[3, 1, 17] = float("inf")
+    wet[5, 1, 3499] = -float("inf")
+    got, want = back_half_pair(dry, wet, scal, layout, None)
+    assert_bit_equal(got, want)
+    assert torch.isnan(got[1]).any() and torch.isfinite(got[0]).all()
+
+
+@pytest.mark.parametrize("layout, batch, n_in, n, eq_on", [
+    ("Stereo", 48, 2_880_000, 2_951_999, False),                 # room-stereo.batch48
+    ("Stereo", 1, 2_880_000, 2_951_999, False),                  # render(): one clip
+    ("5.1 (Standard)", 48, 2_880_000, 3_155_898, True),          # the padded cell's shape
+], ids=["batch48", "b1", "padded-5.1-eq"])
+def test_back_half_kernel_main_shapes(cuda, layout, batch, n_in, n, eq_on):
+    from audio_raytracing_studio_tpu_torch.ops import filters
+
+    dry, wet, scal = back_half_inputs(batch, n_in, n, seed=batch, cuda=cuda)
+
+    def eq(mixed):
+        return filters.apply_shelf_eq(mixed, 48000, scal.bass_gain, scal.treble_gain)
+
+    got, want = back_half_pair(dry, wet, scal, layout, eq if eq_on else None)
+    assert_bit_equal(got, want)
+
+
+def test_back_half_counted_once_per_padded_render_batch(cuda):
+    """The padded, EQ-on path of render_batch (its EQ between the kernels'
+    mix and their passes): one count per call, the render equal to the
+    CPU's within the card-vs-CPU tolerance."""
+    from audio_raytracing_studio_tpu_torch.ops import back_half_cuda
+
+    rate = 16000
+    t = np.arange(rate) / rate
+    clips = np.stack([(0.4 * np.sin(2 * np.pi * (220 + 40 * i) * t)).astype(np.float32)
+                      for i in range(3)])
+    lens = [rate, rate - 997, rate - 4001]
+    for b, n in enumerate(lens):
+        clips[b, n:] = 0.0
+    p = RenderParams(hall_type="Cathedral", room_size=300.0, target_layout="5.1 (Standard)",
+                     bass_gain=1.6, treble_gain=0.7)
+    kw = dict(seeds=[1, 2, 3], with_metrics=True, clip_lengths=lens)
+    for _ in range(2):
+        before = back_half_cuda.launch_count
+        out, _ = sharding.render_batch(clips, rate, p, device=cuda, **kw)
+        assert back_half_cuda.launch_count == before + 1
+    ref, _ = sharding.render_batch(clips, rate, p, device="cpu", **kw)
+    assert float(np.abs(out - ref).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("layout", BACK_HALF_LAYOUTS)
+def test_back_half_kernel_positions_across_and_off_the_square(cuda, layout):
+    """Positions across and off the unit square reach the kernels through
+    their coefficient table: 256 clips with x swept across [-0.1, 1.1], y
+    and z drawn over [-0.2, 1.2], then the corners, the centre and a NaN
+    position, all bit-equal to the plain version."""
+    batch, n = 256, 97
+    dry, wet, scal = back_half_inputs(batch, 61, n, seed=3, cuda=cuda)
+    r = np.random.default_rng(4)
+    x = np.linspace(-0.1, 1.1, batch).astype(np.float32)
+    y, z = r.uniform(-0.2, 1.2, (2, batch)).astype(np.float32)
+    fixed = [(0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (0.5, 0.5, 0.5), (1.0, 0.0, 0.5),
+             (0.0, 1.0, -3.0), (-1.0, 2.0, 0.25), (float("nan"), 0.5, 0.5)]
+    for b, pos in enumerate(fixed, start=5):
+        x[b], y[b], z[b] = pos
+    scal = scal._replace(x_pos=torch.from_numpy(x).to(cuda), y_pos=torch.from_numpy(y).to(cuda),
+                         z_pos=torch.from_numpy(z).to(cuda))
+    got, want = back_half_pair(dry, wet, scal, layout, None)
+    assert_bit_equal(got, want)
+    assert torch.isnan(got[11]).any() and torch.isfinite(got[:11]).all()
