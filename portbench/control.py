@@ -5,16 +5,32 @@ seeds in one process, from the program or from the control in its place.
 
 Prints one JSON line per seed (``correct``, each number compared, the
 end-to-end metrics) and a last line with the largest reading of each
-number.  ``--control`` puts the bfloat16 reference in the program's place
-(``reference/control.py``).
+number.  ``--control`` puts the bfloat16 control of the reference that the
+cell's configuration names in the program's place (``reference/control.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
+
+
+def use_control(spec: dict) -> None:
+    """Put the control of ``spec``'s reference in ``render_batch``'s place,
+    with no pipelined warm-up in the cell's generator (the control's timing
+    is not read)."""
+    from audio_raytracing_studio_tpu_torch.parallel import sharding
+
+    from . import run as bench
+    from .harness import reference
+    from .reference import control
+
+    sharding.render_batch = functools.partial(control.render_batch,
+                                              reference=reference(spec["config"]))
+    bench.generator(spec["traffic"]).WARM_ROUNDS = 0
 
 
 def main(argv=None) -> int:
@@ -28,13 +44,7 @@ def main(argv=None) -> int:
     from . import run as bench
 
     if args.control:
-        from audio_raytracing_studio_tpu_torch.parallel import sharding
-
-        from .reference import control
-        from .traffic import closed_batches
-
-        sharding.render_batch = control.render_batch
-        closed_batches.WARM_ROUNDS = 0  # the control's timing is not read
+        use_control(bench.cell_spec(args.workload))
     worst = {}
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import sys
@@ -38,6 +39,9 @@ class Sample:
     clip_length: Optional[int]
     fast: bool
     padded_eq: bool
+    # the batch's extra keywords of ``render_batch`` (one read-only object
+    # shared by every kept row of the batch), passed on to the reference
+    inputs: dict = dataclasses.field(default_factory=dict)
 
 
 class Run:
@@ -190,6 +194,13 @@ def summarize(prof) -> dict:
 
 
 # --- correctness ---------------------------------------------------------------
+def reference(config: dict):
+    """The plain reference a configuration names under ``"reference"``: a
+    module of ``reference/`` with ``render_row`` (and optionally
+    ``batch_inputs``); the internal hall, ``reference/render.py``, by default."""
+    return importlib.import_module(f"{__package__}.reference.{config.get('reference', 'render')}")
+
+
 def _gap(a: float, b: float) -> float:
     if math.isinf(a) or math.isinf(b):
         return 0.0 if a == b else math.inf
@@ -213,16 +224,18 @@ def compare(sample: Sample, out: torch.Tensor, ref_metrics: dict) -> Dict[str, f
 
 
 def check(run: Run, limits: Dict[str, float], prec: ref.Precision = ref.FLOAT64):
-    """Work every sampled answer out again with the plain reference (on the
-    run's device, after the window) → (correct, {name: (value, limit)})."""
+    """Work every sampled answer out again with the plain reference that the
+    run's configuration names (on the run's device, after the window) →
+    (correct, {name: (value, limit)})."""
     worst: Dict[str, float] = {name: 0.0 for name in limits}
     done: Dict[tuple, tuple] = {}
     rate = int(run.config["rate"])
+    render_row = reference(run.config).render_row
     with ref.few_fft_plans(run.device):
         for s in run.samples:
             if s.key not in done:
-                out, valid = ref.render_row(s.clip, rate, s.params, s.seed, s.clip_length,
-                                            s.fast, s.padded_eq, prec, run.device)
+                out, valid = render_row(s.clip, rate, s.params, s.seed, s.clip_length,
+                                        s.fast, s.padded_eq, prec, run.device, **s.inputs)
                 done[s.key] = (out, ref.meter(out, valid, rate, prec))
             for name, value in compare(s, *done[s.key]).items():
                 worst[name] = max(worst.get(name, 0.0), value)

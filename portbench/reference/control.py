@@ -2,7 +2,10 @@
 in the next precision below the configuration's float32 (bfloat16 storage
 of every stage's result).  It answers ``render_batch``'s call as the
 program does, so a run with it in place drives the whole harness, and the
-comparison has to find it not correct."""
+comparison has to find it not correct.  The reference is the one the
+cell's configuration names (``render``, the internal hall, by default),
+and the batch's extra keywords (such as an external IR) go on to its
+``render_row``."""
 
 from __future__ import annotations
 
@@ -16,8 +19,9 @@ from . import render as ref
 
 def render_batch(audio, rate, params, seeds=None, clip_lengths=None, with_metrics=False,
                  fast_filters=False, pcm16_output=False, real_batch=None,
-                 async_results=False, device="cuda", **_ignored):
-    """``sharding.render_batch``'s contract for an internal-hall batch."""
+                 async_results=False, device="cuda", reference=ref, **inputs):
+    """``sharding.render_batch``'s contract, answered by ``reference``'s
+    ``render_row`` at ``ref.BF16``."""
     audio = np.asarray(audio, np.float32)
     audio = audio[:, :, None] if audio.ndim == 2 else audio
     batch = audio.shape[0]
@@ -32,8 +36,9 @@ def render_batch(audio, rate, params, seeds=None, clip_lengths=None, with_metric
     with ref.few_fft_plans(device):
         for i in range(n_real):
             tl = None if clip_lengths is None else clip_lengths[i]
-            out, valid = ref.render_row(audio[i], rate, dicts[i], seeds[i], tl, fast_filters,
-                                        padded, ref.BF16, torch.device(device))
+            out, valid = reference.render_row(audio[i], rate, dicts[i], seeds[i], tl,
+                                              fast_filters, padded, ref.BF16,
+                                              torch.device(device), **inputs)
             outs.append(ref.pcm16(out) if pcm16_output else out.T.float().cpu().numpy())
             metrics.append(ref.meter(out, valid, rate, ref.BF16))
     result = np.stack(outs)

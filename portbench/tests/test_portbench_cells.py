@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 
 from portbench import run as bench
+from portbench.harness import reference
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -29,7 +30,10 @@ def test_names_and_keys():
         assert json.loads((ROOT / c["file"]).read_text())["name"] == c["name"]
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert NAME.match(w["name"]) and w["chips"] == 1 and len(w["why"]) <= 200
+        assert NAME.match(w["name"]) and w["chips"] in (1, 4) and len(w["why"]) <= 200
+    # at most a quarter of the cells, rounded down, take four chips, or one cell may
+    four = sum(w["chips"] == 4 for w in SPEC["workloads"])
+    assert four <= max(1, len(SPEC["workloads"]) // 4)
     for m in SPEC["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] == "host_clock"
@@ -42,6 +46,8 @@ def test_names_and_keys():
 def test_cell_resolves(workload):
     spec = bench.cell_spec(workload)
     assert spec["config"]["name"] == spec["cell"]["config"]
+    # the plain reference the configuration names (the internal hall by default)
+    assert callable(reference(spec["config"]).render_row)
     assert hasattr(bench.generator(spec["traffic"]), "run")
     e2e = [m["name"] for m in spec["end_to_end"]]
     assert "setup_s" in e2e and len(e2e) >= 2

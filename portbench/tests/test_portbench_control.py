@@ -5,14 +5,17 @@ import numpy as np
 import pytest
 
 from portbench import run as bench
-from portbench.reference import control
+from portbench.control import use_control
 from portbench.tests.conftest import TINY
 from portbench.tests.test_portbench_cells import CELLS
 
 
 @pytest.mark.parametrize("workload", CELLS)
-def test_control_fails(workload, restore_render_batch):
-    restore_render_batch.render_batch = control.render_batch
+def test_control_fails(workload, restore_render_batch, monkeypatch):
+    spec = bench.cell_spec(workload)
+    gen = bench.generator(spec["traffic"])
+    monkeypatch.setattr(gen, "WARM_ROUNDS", gen.WARM_ROUNDS)  # put back after the swap
+    use_control(spec)  # what ``python3 -m portbench.control --control`` does
     line = bench.run_cell(workload, 11, 0.3, False, "cpu", TINY)
     assert line["correct"] is False
     assert line["check"]["pcm_gap_lsb"]["value"] > line["check"]["pcm_gap_lsb"]["limit"]

@@ -4,7 +4,10 @@ the card.
 Set-up makes ``distinct_batches`` batches of ``batch`` clips from the run's
 seed straight into page-locked staging (``sharding.staging_clips``), each
 row with a render seed of its own and, where the mix pads, a true length
-drawn from ``true_length_share`` of the buffer.  The window cycles through
+drawn from ``true_length_share`` of the buffer.  Where the configuration's
+reference module has ``batch_inputs(run, k, rng)``, each batch also gets
+the extra keywords of ``render_batch`` it returns (such as an external IR),
+from a generator of the run's seed of their own.  The window cycles through
 them, keeping ``in_flight`` batches enqueued on as many CUDA streams
 (``render_batch(async_results=True)``): while one batch renders, the next
 one's upload and the previous one's copy down ride the copy engines.  A
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import inputs
-from ..harness import Run, Sample
+from ..harness import Run, Sample, reference
 from ..reference import render as ref
 
 # pipelined warm-up rounds after the first batch (each puts ``in_flight``
@@ -44,6 +47,7 @@ class Batch:
     seeds: List[int]
     lengths: Optional[List[int]]
     audio_s: float
+    inputs: dict  # extra keywords of render_batch, read-only
 
 
 class Reservoir:
@@ -78,13 +82,16 @@ def make_batches(run: Run) -> List[Batch]:
 
     staging = [sharding.staging_clips(size, n, channels, run.device) for _ in range(count)]
     run.mark("staging_alloc")
+    batch_inputs = getattr(reference(cfg), "batch_inputs", None)
+    extra_rng = np.random.default_rng([run.seed, 2])
     batches = []
     for k, audio in enumerate(staging):
         rows = slice(k * size, (k + 1) * size)
         lens = None if lengths is None else lengths[rows]
         inputs.clips_into(audio, int(rng.integers(2 ** 62)), rate, run.device, lens)
         audio_s = (size * n if lens is None else sum(lens)) / rate
-        batches.append(Batch(k, audio, seeds[rows], lens, audio_s))
+        extra = batch_inputs(run, k, extra_rng) if batch_inputs else {}
+        batches.append(Batch(k, audio, seeds[rows], lens, audio_s, extra))
     run.sync()
     run.mark("inputs")
     return batches
@@ -122,7 +129,7 @@ def run(run: Run) -> None:
             fetch = sharding.render_batch(
                 b.audio, rate, prm, seeds=b.seeds, clip_lengths=b.lengths,
                 with_metrics=True, fast_filters=fast, pcm16_output=True,
-                async_results=True, device=run.device)
+                async_results=True, device=run.device, **b.inputs)
         return b, fetch
 
     # set-up: the kernels' build and the plans at the first batch, then a
@@ -167,7 +174,7 @@ def run(run: Run) -> None:
                         metrics=metrics[row],
                         clip=b.audio[row], params=params, seed=b.seeds[row],
                         clip_length=None if b.lengths is None else b.lengths[row],
-                        fast=fast, padded_eq=padded_eq)
+                        fast=fast, padded_eq=padded_eq, inputs=b.inputs)
             del out, metrics
             done_audio += b.audio_s
             done_rows += len(b.seeds)
